@@ -13,6 +13,17 @@ Layouts: Dense kernels (I, O) -> Linear weights (O, I); Conv kernels HWIO
 -> OIHW; the strided deconvolutions keep the torch (I, O, k, k) layout the
 JAX package already stores; fp32 LayerNorms lose their ``LayerNorm_0``
 level and ``scale`` becomes ``weight``.
+
+The refinement (``.../refinement/middle_encoder/...``,
+``.../refinement/bev_height_occupancy/...``) keeps the flax module names.
+Its leaves come from two flax collections, ``params`` and ``batch_stats``:
+sparse kernels stay (K, Cin, Cout); ``nn.Conv`` kernels go HWIO -> OIHW;
+a batch norm's ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight`` /
+``bias`` / ``running_mean`` / ``running_var`` and lose their
+``BatchNorm_0`` level. A whole ResDet3D tree
+(``reconstruction_backbone/da3/...``, ``reconstruction_backbone/refinement/...``)
+maps to the port's ``reconstruction_backbone.da3.`` and
+``reconstruction_backbone.refinement.`` prefixes.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ _PREFIXES = [
 
 # inside a module, applied in order to the rest of the path
 _REWRITES = [
-    (re.compile(r"/LayerNorm_0/"), "/"),
+    (re.compile(r"/(LayerNorm|BatchNorm)_0/"), "/"),
     (re.compile(r"(^|/)blocks_(\d+)/"), r"\1blocks.\2/"),
     (re.compile(r"(^|/)trunk_(\d+)/"), r"\1trunk.\2/"),
     (re.compile(r"(^|/)projects_(\d+)/"), r"\1projects.\2/"),
@@ -57,13 +68,21 @@ _REWRITES = [
     (re.compile(r"(^|/)fc_fov_0/"), r"\1fc_fov.0/"),
 ]
 
-_LEAVES = {"kernel": "weight", "scale": "weight"}
+_LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
+_COLLECTIONS = ("params/", "batch_stats/")
+_BACKBONE_DA3 = "reconstruction_backbone/da3/"
 _DECONV = re.compile(r"(^|\.)resize_layers\.[01]\.weight$")
 
 
+def _strip_collection(path: str) -> str:
+    for coll in _COLLECTIONS:
+        if path.startswith(coll):
+            return path[len(coll):]
+    return path
+
+
 def _split_prefix(path: str) -> Tuple[str, str]:
-    if path.startswith("params/"):
-        path = path[len("params/"):]
+    path = _strip_collection(path)
     for flax_pref, torch_pref in _PREFIXES:
         if path.startswith(flax_pref):
             return torch_pref, path[len(flax_pref):]
@@ -72,7 +91,12 @@ def _split_prefix(path: str) -> Tuple[str, str]:
 
 def torch_name(path: str) -> str:
     """'params/anyview/net/blocks_3/attn/qkv/kernel' ->
-    'da3.backbone.pretrained.blocks.3.attn.qkv.weight'."""
+    'da3.backbone.pretrained.blocks.3.attn.qkv.weight';
+    'batch_stats/reconstruction_backbone/refinement/middle_encoder/conv_input_norm/mean' ->
+    'reconstruction_backbone.refinement.middle_encoder.conv_input_norm.running_mean'."""
+    path = _strip_collection(path)
+    if path.startswith(_BACKBONE_DA3):
+        return "reconstruction_backbone.da3." + torch_name(path[len(_BACKBONE_DA3):])
     prefix, rest = _split_prefix(path)
     rest = "/" + rest
     for pat, repl in _REWRITES:
@@ -105,8 +129,9 @@ def _to_torch_layout(path: str, arr: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flattened flax parameters ("/"-joined paths) -> port state dict (fp32
-    CPU tensors; ``load_state_dict`` casts and moves them)."""
+    """Flattened flax variables ("/"-joined paths, the ``params`` and, for
+    the refinement's norms, the ``batch_stats`` collection) -> port state
+    dict (fp32 CPU tensors; ``load_state_dict`` casts and moves them)."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat.items():
         name = torch_name(path)

@@ -30,7 +30,7 @@ _FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# per source: {"seconds": wall seconds of its nvcc (0.0 if cached), "ptxas": compiler report}
+# per source: {"seconds": seconds from its nvcc's start to its end, read in turn (0.0 if cached), "ptxas": compiler report}
 BUILD_LOG: Dict[str, dict] = {}
 
 
@@ -58,19 +58,28 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
         return _libs
     out = _build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    for src in sorted(CSRC.glob("*.cu")):
-        so = out / f"lib{src.stem}.so"
-        if so.exists():
+    # one nvcc per source, all started together; a library is written under a
+    # temporary name, so a killed build leaves nothing to reuse
+    sources = sorted(CSRC.glob("*.cu"))
+    running = {}
+    for src in sources:
+        if (out / f"lib{src.stem}.so").exists():
             BUILD_LOG[src.stem] = {"seconds": 0.0, "ptxas": "cached"}
+            continue
+        tmp = out / f"lib{src.stem}.{os.getpid()}.tmp.so"
+        proc = subprocess.Popen([_nvcc(), *_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[src.stem] = (proc, tmp, time.perf_counter())
+    failed = []
+    for stem, (proc, tmp, t0) in running.items():
+        log = proc.communicate()[0]
+        BUILD_LOG[stem] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {stem}.cu (rc {proc.returncode}):\n{log}")
         else:
-            # written under a temporary name, so a killed build leaves no library to reuse
-            tmp = out / f"lib{src.stem}.{os.getpid()}.tmp.so"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            BUILD_LOG[src.stem] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stdout}
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src.name} (rc {proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, so)
-        _libs[src.stem] = ctypes.CDLL(str(so))
+            os.replace(tmp, out / f"lib{stem}.so")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for src in sources:
+        _libs[src.stem] = ctypes.CDLL(str(out / f"lib{src.stem}.so"))
     return _libs
