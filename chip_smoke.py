@@ -39,7 +39,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
             every stage of the point path and the refinement) and a
             ``torch.profiler`` trace summed by kernel class, with the
             device's idle share of the request.
-11. the kernel table as one JSON line; then the card line, then the result.
+11. bwd      the two flash-attention backward kernels (dq; dk and dv) vs
+            their plain PyTorch version on the same bf16 values at the
+            shapes a fine-tuning step gives them (ViT-L local and global),
+            one case with ``kv_len`` and the ViT-g global shape; times of
+            each kernel, the plain version, the backward of
+            ``scaled_dot_product_attention`` (a yardstick only) and the bound.
+12. finetune ``Trainer`` with ``frozen_patterns=()`` on
+            ``build_resdet3d("da3-large", freeze_da3=False)``: fp32 master
+            parameters, bf16 compute, every ViT block under checkpointing
+            (the depth head's last convolution scaled by 0.1 so that the
+            random net's exp() depths stay finite under AdamW),
+            B=1 scene x 6 views x 900x1600 images and 40,000 GT points;
+            one warm-up and three steps. Losses and gradients finite, DA3
+            gradient norm > 0, a ViT and a refinement parameter moved, flash
+            forward / dq / dk-dv launches counted per shape and held to
+            the count the model's blocks give.
+13. in-situ  at the fine-tuning model's weights as built (before the steps of
+            phase 12 move them): one backward through the whole DA3 net with
+            the kernels and one with the plain attention under autograd; the
+            patch-embedding and last-block qkv gradients must agree.
+14. train    the production train step: the nested-giant model of phase 4,
+            ``Trainer`` with DA3 frozen; one warm-up and three steps; finite
+            loss, no backward-kernel launch, no optimizer state for DA3, DA3
+            parameters bit-identical afterwards.
+15. the kernel table as one JSON line; then the card line, then the result.
 
 Needs CUDA; exits non-zero without it (or without the rest of the repo).
 """
@@ -62,11 +86,21 @@ from recondet3d_torch.data.pipelines.point_pipeline import ball_query_downsample
 from recondet3d_torch.models.da3.layers import set_attn_impl
 from recondet3d_torch.models.detect import build_resdet3d
 from recondet3d_torch.ops import fps as fps_ops
-from recondet3d_torch.ops.attention import attention_plain, flash_attention_fwd, reset_launch_counts
+from recondet3d_torch.models.detect import ReconstructionBackbone, ResDet3D
+from recondet3d_torch.ops.attention import (
+    attention_bwd_plain,
+    attention_plain,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_fwd,
+    reset_launch_counts,
+)
 from recondet3d_torch.ops.build import BUILD_LOG, load_kernels
 from recondet3d_torch.ops.cell_sort import cell_sort
 from recondet3d_torch.ops.sampling import furthest_point_sample
 from recondet3d_torch.utils import stage_timer
+from recondet3d_torch.train import Trainer
 from recondet3d_torch.utils.geometry import depth_to_points_cam
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -100,6 +134,31 @@ UNION_CAP_NO_PRE_REDUCE = 425088  # min(846720, 25000 * 17) rounded up to 128: t
 # (N, K) -> launches per scene on the main path
 FPS_EXPECTED_PER_SCENE = {(PRE_REDUCE_CAP, ANCHORS): 1, (PRE_REDUCE_CAP, NUM_POINTS): 1}
 REFERENCE_POINTS = "assets/bench_sample/reference_points.npz"
+
+# backward kernels vs the plain version (the same roundings of qs, P and dS, fp32 sums in another order) on the
+# same bf16 values: relative L2 and max |error| of each of dq, dk, dv. Gradients are ~0.04-0.2 at these shapes;
+# both gates were fixed before the first run on the card.
+BWD_REL_TOL, BWD_ABS_TOL = 1e-2, 5e-3
+# in-situ: relative L2 of a parameter's gradient through the whole DA3 net, kernels vs plain attention under
+# autograd. The two attentions round differently (the kernels round qs, P and dS to bf16, the plain version
+# keeps them in fp32), and 24 random-weight blocks amplify that: the forward's in-situ depth maps already differ
+# by 0.14 (phase 6), these gradients by 0.09-0.10 at the weights as built; a wrong kernel moves them by ~1.
+GRAD_REL_TOL = 0.2
+FT_PRESET, TRAIN_B, TRAIN_STEPS, GT_POINTS = "da3-large", 1, 3, 40000
+# (B, H, N, M) a fine-tuning step of da3-large (ViT-L: 16 heads of 64) gives the three flash kernels
+FT_SHAPES = {"vitl_local_b1": (TRAIN_B * S, 16, 721, 721), "vitl_global_b1": (TRAIN_B, 16, S * 721, S * 721)}
+# the forward kernel's shapes in the two train steps: da3-large (a) and nested-giant-large (b) at B=1
+TRAIN_FWD_SHAPES = dict(FT_SHAPES, vitg_local_b1=(TRAIN_B * S, 24, 721, 721),
+                        vitg_global_b1=(TRAIN_B, 24, S * 721, S * 721))
+# The flax initializers give the depth head's last convolution logits of about +-9, and depth = exp(logit):
+# under AdamW every weight moves by ~lr per step whatever its gradient, the logits of this random net grow by
+# several units a step, and within a few steps a depth overflows to inf, whose masked-out pixel still turns
+# the gradients into NaN (0 * inf in the backward of exp). The fine-tuning phase therefore scales that one
+# convolution's random weights once, before the first step: depths start within about [0.9, 2.5] m and stay
+# finite over the steps taken here (``recondet3d_torch/tools/finetune_divergence.py`` follows both cases for
+# eight steps). Widths, depth of the net and every other weight are as built.
+FT_DEPTH_HEAD_SCALE = 0.1
+MIN_POINTS = 1000  # a train step's scene must keep at least this many points, or max_depth is set from the depth
 
 
 def emit(phase, **kw):
@@ -168,6 +227,73 @@ def kernel_case(name, shape, kv_len, seed, iters=20):
     if not ok:
         fail(f"flash kernel disagrees with the plain version at {name}: "
              f"out {err_out} (rel L2 {rel_out}), lse {err_lse}")
+    return res
+
+
+def bwd_bound_ms(BH, N, M, kv_rows, ops_per_pair, n_out_rows, D=64):
+    """Least time for one backward kernel: the larger of the bf16 tensor-core
+    time of ``ops_per_pair``*D operations per needed (query, key) pair (6 for
+    dq: S, dP, dS K; 8 for dk and dv: S, dP, P^T dO, dS^T Q) and the time to
+    read q, dO (N rows), k, v (needed rows), lse and delta once and write
+    ``n_out_rows`` output rows per (b*h) once."""
+    flops = float(ops_per_pair) * N * D * float(kv_rows.sum())
+    nbytes = 2 * BH * N * D * 2 + 2 * float(kv_rows.sum()) * D * 2 + 2 * BH * N * 4 + BH * n_out_rows * D * 2
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bwd_case(name, shape, kv_len, seed, on_path, iters=10):
+    """Both backward kernels against ``attention_bwd_plain`` on one set of
+    bf16 values, with out and lse from the forward kernel."""
+    Bq, H, N, M = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((Bq, H, n, 64), dtype=np.float32)).cuda().to(torch.bfloat16)
+                   for n in (N, M, M, N))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out, lse = flash_attention_fwd(q, k, v, kvl)
+    got = flash_attention_bwd(q, k, v, out, lse, do, kvl)
+    torch.cuda.synchronize()
+    ref = attention_bwd_plain(q, k, v, out, lse, do, kvl)
+    errs = {}
+    for key, a, r in zip(("dq", "dk", "dv"), got, ref):
+        errs[key] = dict(rel_l2=rel_l2(a, r), max_abs=(a.float() - r.float()).abs().max().item(),
+                         finite=bool(torch.isfinite(a).all()))
+    del ref
+    ok = all(e["rel_l2"] <= BWD_REL_TOL and e["max_abs"] <= BWD_ABS_TOL and e["finite"] for e in errs.values())
+    again = flash_attention_bwd(q, k, v, out, lse, do, kvl)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+
+    delta = (do.float() * out.float()).sum(dim=-1)
+    if kvl is None:
+        mask, rows = None, np.full(Bq * H, M, np.float64)
+    else:
+        mask = (torch.arange(M, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+        rows = np.repeat(np.minimum(np.asarray(kv_len, np.float64), M), H)
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, kvl), iters)
+    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl), iters)
+    delta_ms = time_ms(lambda: (do.float() * out.float()).sum(dim=-1), iters)
+    p_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, kvl), 1, warmup=1)
+    # the library's backward, timed alone: one autograd call over a forward made once
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    # (the least of three timings: at the small shapes this call is bound by autograd's host work, which varies)
+    l_ms = min(time_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), iters)
+               for _ in range(3))
+    del o_lib
+    dq_b, dq_by = bwd_bound_ms(Bq * H, N, M, rows, 6, N)
+    dkv_b, dkv_by = bwd_bound_ms(Bq * H, N, M, rows, 8, 2 * M)
+    pairs = N * 64 * rows.sum()
+    res = dict(name=name, shape=list(shape), kv_len=kv_len, on_path=on_path, errors=errs,
+               max_abs_err=max(e["max_abs"] for e in errs.values()),
+               rel_l2_err=max(e["rel_l2"] for e in errs.values()),
+               tol=dict(rel_l2=BWD_REL_TOL, max_abs=BWD_ABS_TOL), same_bits_run_to_run=same_bits,
+               dq=dict(ms=dq_ms, bound_ms=dq_b, bound_by=dq_by, tflops=6.0 * pairs / (dq_ms * 1e-3) / 1e12),
+               dkv=dict(ms=dkv_ms, bound_ms=dkv_b, bound_by=dkv_by, tflops=8.0 * pairs / (dkv_ms * 1e-3) / 1e12),
+               delta_ms=delta_ms, plain_ms=p_ms, library_ms=l_ms, ok=ok and same_bits)
+    emit("bwd_kernel", **res)
+    if not res["ok"]:
+        fail(f"flash backward kernels disagree with the plain version at {name}: {errs}; "
+             f"same bits run to run: {same_bits}")
     return res
 
 
@@ -273,6 +399,10 @@ def kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
         return "flash_attn_fwd (hand kernel)"
+    if "flash_bwd_dq_kernel" in n:
+        return "flash_attn_bwd dq (hand kernel)"
+    if "flash_bwd_dkv_kernel" in n:
+        return "flash_attn_bwd dk/dv (hand kernel)"
     if "fps_kernel" in n:
         return "fps (hand kernel)"
     if any(t in n for t in ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm", "winograd", "cudnn")):
@@ -330,11 +460,17 @@ def profile(resdet, request, img, runs=2):
         stage_ms[name] = float(np.sum([a.elapsed_time(b) for a, b in pairs])) / runs
     stage_ms.update({k: v / runs for k, v in times.items() if not k.endswith("/calls")})
 
+    emit("profile", stage_ms=stage_ms, **device_profile(lambda: request(img)))
+
+
+def device_profile(fn, top_n=15):
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    class, the device's idle share of the wall time, top kernels."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request(img)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -347,11 +483,164 @@ def profile(resdet, request, img, runs=2):
     for name, (ms, _) in by_kernel.items():
         by_class[kernel_class(name)] += ms
     busy = sum(by_class.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    emit("profile", stage_ms=stage_ms, wall_ms_profiled=wall_ms, device_busy_ms=busy,
-         device_idle_share=max(0.0, 1 - busy / wall_ms) if busy else None,
-         ms_by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-         top_kernels=[{"name": n[:120], "ms": v[0], "calls": v[1]} for n, v in top])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / wall_ms) if busy else None,
+                ms_by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+                top_kernels=[{"name": n[:120], "ms": v[0], "calls": v[1]} for n, v in top])
+
+
+def sparse_conv_backward_cost(refinement, pts, msk):
+    """The sparse convolution's gather-form backward (what the port runs)
+    beside autograd's own derivative of the row gather (a scatter-add with
+    atomics) on the first encoder stage's neighbour map of a real request:
+    forward + backward ms of each, and their largest difference."""
+    from recondet3d_torch.models.refine.refinement import batch_voxelize
+    from recondet3d_torch.ops import sparse_conv as sc
+
+    with torch.no_grad():
+        _, coors, _ = batch_voxelize(pts[:1], msk[:1], point_cloud_range=refinement.point_cloud_range,
+                                     voxel_size=refinement.voxel_size, max_points=refinement.max_num_points,
+                                     max_voxels=refinement.max_voxels)
+        st = sc.sort_by_column(sc.sparse_tensor_from_voxels(
+            torch.zeros(coors.shape[0], 1, device="cuda"), coors, refinement.middle_encoder.sparse_shape, 1))
+        nbr = sc.build_neighbor_map(st, 3)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, c = nbr.shape[0], 16
+    f = torch.randn(n, c, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_()
+    f.data[~st.valid] = 0
+    w = (torch.randn(27, c, c, device="cuda", generator=gen) / (27 * c) ** 0.5).requires_grad_()
+    g = torch.randn(n, c, device="cuda", generator=gen).to(torch.bfloat16)
+    gather_form = lambda: torch.autograd.grad(sc.subm_conv_apply(f, nbr, w), (f, w), g)
+    scatter_form = lambda: torch.autograd.grad(sc._gather_matmul(f, nbr, w), (f, w), g)
+    a, b = gather_form(), scatter_form()
+    emit("sparse_conv_bwd", rows=n, active=int(st.valid.sum()), taps=27, channels=c,
+         neighbours_per_row=float((nbr < n).sum() / max(int(st.valid.sum()), 1)),
+         gather_form_fwd_bwd_ms=time_ms(gather_form, 20), scatter_add_fwd_bwd_ms=time_ms(scatter_form, 20),
+         max_abs_diff_dfeatures=(a[0].float() - b[0].float()).abs().max().item(),
+         max_abs_dfeatures=a[0].float().abs().max().item(),
+         max_abs_diff_dweight=(a[1] - b[1]).abs().max().item(), max_abs_dweight=a[1].abs().max().item())
+
+
+def train_batch(seed):
+    """One sample per device, as the training CLI batches: B=1 scene x 6
+    views of 900x1600 float images, the rig, 40,000 GT points in the range."""
+    rng = np.random.default_rng(seed)
+    gt = rng.uniform(-50, 50, (TRAIN_B, GT_POINTS, 3)).astype(np.float32)
+    gt[..., 2] = rng.uniform(-4, 2, (TRAIN_B, GT_POINTS))
+    return dict(img=images(seed)[:TRAIN_B], cam2lidar_rts=torch.from_numpy(rig_cam2lidar(TRAIN_B)).cuda(),
+                gt_points=torch.from_numpy(gt).cuda())
+
+
+def fit_max_depth(model, batch, what):
+    """``forward_train`` takes no depth override, so a train step's cloud
+    comes from DA3's own depth, which under random weights need not look
+    like a street scene. Counts the points a scene keeps; when that is
+    fewer than MIN_POINTS and the predicted depth lies beyond ``max_depth``,
+    tries ``max_depth`` at the 0.5 and 0.9 quantiles of the predicted depth
+    and, if one keeps more points, returns the model rebuilt around the same
+    DA3 and refinement modules with it. The model's weights and widths are
+    untouched. Where no ``max_depth`` helps (rays or depths that leave the
+    range whatever the cut), the phase runs on the cloud it gets and says so:
+    buffers are static, so the work per step is the same."""
+    bk = model.reconstruction_backbone
+    with torch.no_grad():
+        depth, intr, _ = bk.predict_depth(batch["img"])
+        qs = [0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99]
+        sample = depth.flatten()[:: max(1, depth.numel() // 1_000_000)]
+        quantiles = dict(zip(qs, torch.quantile(sample.float(), torch.tensor(qs, device="cuda")).tolist()))
+
+        def kept(max_depth):
+            bk.max_depth = max_depth
+            _, msk = bk.points_from_depth(depth, intr, batch["img"], batch["cam2lidar_rts"])
+            return int(msk.sum())
+
+        built = bk.max_depth
+        tried = [dict(max_depth=built, quantile=None, kept=kept(built))]
+        if tried[0]["kept"] < MIN_POINTS:
+            tried += [dict(max_depth=quantiles[q], quantile=q, kept=kept(quantiles[q]))
+                      for q in (0.5, 0.9) if quantiles[q] > built]
+        bk.max_depth = built
+    chosen = max(tried, key=lambda t: t["kept"])  # the first (as built) on ties
+    emit("depth_filter", phase_of=what, depth_quantiles=quantiles, tried=tried, chosen_max_depth=chosen["max_depth"],
+         chosen_quantile=chosen["quantile"], intrinsics_view0=intr[0, 0].tolist(),
+         enough_points=chosen["kept"] >= MIN_POINTS)
+    if chosen["quantile"] is None:
+        return model, chosen
+    rebuilt = ReconstructionBackbone(
+        da3=bk.da3, refinement=bk.refinement, process_res=bk.process_res, ref_view_strategy=bk.ref_view_strategy,
+        use_ray_pose=bk.use_ray_pose, max_depth=chosen["max_depth"], freeze_da3=bk.freeze_da3,
+        filter_range=bk.filter_range, bq_anchor_points=bk.bq_anchor_points, bq_max_radius=bk.bq_max_radius,
+        bq_sample_num=bk.bq_sample_num, bq_grid_dim=bk.bq_grid_dim, bq_share_sort=bk.bq_share_sort,
+        num_points=bk.num_points, voxel_pre_reduce=bk.voxel_pre_reduce, pre_reduce_cap=bk.pre_reduce_cap,
+        fps_impl=bk.fps_impl)
+    return ResDet3D(rebuilt), chosen
+
+
+def attention_blocks(model):
+    """(local, global) attention blocks of every ViT trunk in ``model``."""
+    n_local = n_global = 0
+    for m in model.modules():
+        if hasattr(m, "alt_start") and hasattr(m, "blocks"):
+            for i in range(len(m.blocks)):
+                if m.alt_start != -1 and i >= m.alt_start and i % 2 == 1:
+                    n_global += 1
+                else:
+                    n_local += 1
+    return n_local, n_global
+
+
+def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
+    """One warm-up step and TRAIN_STEPS timed steps through ``Trainer.run``;
+    the launch counts of every kernel are set to zero just before the timed
+    steps and read just after."""
+    state = trainer.init_state()
+    state, _ = trainer.run(state, iter([batch]), max_steps=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    fps_ops.reset_launch_counts()
+    times, history, counts = [], [], []
+    with stage_timer.collect() as stages:
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, h = trainer.run(state, iter([batch]), max_steps=1)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            history += h
+            counts.append({k: [int(c) for c in v] for k, v in model.reconstruction_backbone.last_stage_counts.items()})
+    launches = dict(
+        fwd=dict(flash_attention_fwd.launches_by_shape), dq=dict(flash_attention_bwd_dq.launches_by_shape),
+        dkv=dict(flash_attention_bwd_dkv.launches_by_shape),
+        fps=dict(fps_ops.furthest_point_sample_cuda.launches_by_shape))
+    unchecked = [shape for shape in launches["fps"] if shape not in fps_case_of]
+    unchecked += [shape for shape in launches["fwd"] if shape not in fwd_case_of]
+    if unchecked:
+        fail(f"{phase}: a kernel ran at sizes no kernel case checked: {unchecked}")
+    if sum(launches["fps"].values()) != 2 * TRAIN_B * TRAIN_STEPS:
+        fail(f"{phase}: fps launches {launches['fps']}, expected {2 * TRAIN_B * TRAIN_STEPS}")
+    for h in history:
+        if not all(np.isfinite(v) for v in h.values()):
+            fail(f"{phase}: non-finite metrics {h}")
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        fail(f"{phase}: a gradient of the last step is not finite")
+    norm = lambda gs: float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]))) \
+        if gs else 0.0
+    res = dict(
+        steps=TRAIN_STEPS, scenes_per_step=TRAIN_B, views=S, image=[IMG_H, IMG_W], gt_points=GT_POINTS,
+        ms_per_step=times, ms_mean=float(np.mean(times)),
+        stage_ms_per_step={k: v / TRAIN_STEPS for k, v in stages.items() if not k.endswith("/calls")},
+        loss=[h["loss"] for h in history], grad_norm=[h["grad_norm"] for h in history],
+        grad_norm_last_step=norm(list(grads.values())),
+        da3_grad_norm_last_step=norm([g for n, g in grads.items() if ".da3." in n]),
+        valid_counts_per_step=counts,
+        launches_by_shape={k: {str(s): n for s, n in v.items()} for k, v in launches.items()},
+        trained_params=sum(p.numel() for p in trainer.optimizer.params),
+        optimizer_state_tensors=len(trainer.optimizer.mu) + len(trainer.optimizer.nu),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return state, res, launches
 
 
 def main():
@@ -369,12 +658,24 @@ def main():
     t0 = time.perf_counter()
     load_kernels()
     emit("build", seconds=time.perf_counter() - t0,
-         kernels={k: {"nvcc_s": v["seconds"], "ptxas": [l for l in v["ptxas"].splitlines() if "Used" in l]}
+         kernels={k: {"nvcc_s": v["seconds"], "ptxas": [l.strip() for l in v["ptxas"].splitlines() if "Used" in l or "spill" in l]}
                   for k, v in BUILD_LOG.items()})
 
     # 3. flash kernel vs plain at the production shapes (+ a kv_len case)
     cases = {name: kernel_case(name, shape, None, seed=i) for i, (name, shape) in enumerate(SHAPES.items())}
     kvl_case = kernel_case("vitg_global_kv_len", SHAPES["vitg_global"], [2911, S * 721], seed=9)
+    # the shapes the two train steps (B=1) give the forward kernel
+    train_fwd_cases = {name: kernel_case(name, shape, None, seed=10 + i, iters=10)
+                       for i, (name, shape) in enumerate(TRAIN_FWD_SHAPES.items())}
+    fwd_case_of = {tuple(c["shape"]): c for c in list(cases.values()) + list(train_fwd_cases.values())}
+
+    # 11. the backward kernels vs plain (here, while the card's memory is free of models: the plain version keeps
+    # several fp32 (N, M) tensors)
+    bwd_cases = {name: bwd_case(name, shape, None, seed=20 + i, on_path=True)
+                 for i, (name, shape) in enumerate(FT_SHAPES.items())}
+    bwd_extra = [bwd_case("vitl_global_b2_kv_len", (2, 16, S * 721, S * 721), [2911, S * 721], seed=29, on_path=False),
+                 bwd_case("vitg_global", SHAPES["vitg_global"], None, seed=30, on_path=False, iters=5)]
+    bwd_case_of = {tuple(c["shape"]): c for c in bwd_cases.values()}
 
     # 4. the model of the main path
     t0 = time.perf_counter()
@@ -518,7 +819,131 @@ def main():
     # 10. where one request's time goes
     profile(resdet, lambda im: resdet.simple_test(im, c2l, depth_override=depth), images(300))
 
-    # 11. kernel table: per kernel, its numbers summed over one request's launch
+    # 10b. one sparse convolution's forward + backward on that request's map: gather form vs autograd's scatter-add
+    sparse_conv_backward_cost(backbone.refinement, pts, msk)
+
+    # 12. fine-tuning: Trainer.run -> ResDet3D.forward_train with gradients through DA3
+    t0 = time.perf_counter()
+    ft = build_resdet3d(FT_PRESET, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1), refinement=REFINEMENT,
+                        voxel_pre_reduce=PRE_REDUCE_VOXEL, pre_reduce_cap=PRE_REDUCE_CAP,
+                        bq_anchor_points=ANCHORS, num_points=NUM_POINTS, freeze_da3=False)
+    with torch.no_grad():
+        ft.reconstruction_backbone.da3.head.scratch.output_conv2._modules["2"].weight.mul_(FT_DEPTH_HEAD_SCALE)
+    batch = train_batch(500)
+    ft, ft_depth = fit_max_depth(ft, batch, "finetune")
+    vit = ft.reconstruction_backbone.da3.backbone.pretrained
+    n_local, n_global = attention_blocks(ft)
+    emit("finetune_model", preset=FT_PRESET, params=sum(p.numel() for p in ft.parameters()),
+         da3_params=sum(p.numel() for p in ft.reconstruction_backbone.da3.parameters()),
+         depth_head_last_conv_scale=FT_DEPTH_HEAD_SCALE, trunk_param_dtype=str(vit.blocks[0].attn.qkv.weight.dtype),
+         compute_dtype=str(vit.dtype), remat=vit.remat,
+         local_blocks=n_local, global_blocks=n_global, build_s=time.perf_counter() - t0)
+    # 13. in-situ, at the weights as built (the steps of phase 12 come after it, so that this check reads the same
+    # model in every run): the whole DA3 net's backward with the kernels and with the plain attention under autograd
+    da3 = ft.reconstruction_backbone.da3
+    x, _ = process_tensor_batch(batch["img"], process_res=504)
+    weights = torch.from_numpy(
+        np.random.default_rng(7).standard_normal((TRAIN_B, S, 280, 504)).astype(np.float32)).cuda()
+    probes = {"patch_embed": vit.patch_embed.proj.weight, "last_block_qkv": vit.blocks[-1].attn.qkv.weight}
+
+    def da3_backward():
+        # a smooth scalar of the depth map: the train loss passes through the point path's discrete
+        # selections, which amplify any rounding difference into another point set
+        out = da3(x, use_ray_pose=False, ref_view_strategy="first")
+        loss = (torch.log(out["depth"].float()) * weights).mean()
+        return loss.item(), torch.autograd.grad(loss, list(probes.values()))
+
+    def train_loss_backward():
+        ft.zero_grad(set_to_none=True)
+        losses, _ = ft(return_loss=True, **batch)
+        total = sum(losses.values())
+        return total.item(), torch.autograd.grad(total, list(probes.values()))
+
+    ft.train()
+    strategy = ft.reconstruction_backbone.ref_view_strategy
+    ft.reconstruction_backbone.ref_view_strategy = "first"  # no argmin over bf16 scores between the two runs
+    tl_k, tg_k = train_loss_backward()
+    reset_launch_counts()
+    loss_k, grads_k = da3_backward()
+    insitu_launches = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    set_attn_impl(da3, "plain")
+    loss_p, grads_p = da3_backward()
+    tl_p, tg_p = train_loss_backward()
+    set_attn_impl(da3, "auto")
+    ft.reconstruction_backbone.ref_view_strategy = strategy
+    ft.zero_grad(set_to_none=True)
+    insitu = {name: rel_l2(a, b) for name, a, b in zip(probes, grads_k, grads_p)}
+    emit("in_situ_bwd", loss_kernels=loss_k, loss_plain=loss_p, grad_rel_l2=insitu, tol=GRAD_REL_TOL,
+         launches_fwd_dq_dkv=insitu_launches,
+         # not gated: the train loss passes through the point path's selections, made on depths that differ by
+         # bf16 rounding between the two runs, so the two losses are taken on different point sets
+         train_loss_kernels=tl_k, train_loss_plain=tl_p,
+         train_loss_grad_rel_l2={name: rel_l2(a, b) for name, a, b in zip(probes, tg_k, tg_p)})
+    if insitu_launches != (2 * (n_local + n_global), n_local + n_global, n_local + n_global):
+        fail(f"in-situ backward: launches {insitu_launches}")
+    if not all(e <= GRAD_REL_TOL for e in insitu.values()):
+        fail(f"in-situ backward: gradient rel L2 {insitu} > {GRAD_REL_TOL}")
+    del grads_k, grads_p, tg_k, tg_p, probes, weights, x
+
+    # 12 (continued). the steps
+    trainer = Trainer(model=ft, total_steps=1000, lr=1e-4, frozen_patterns=())
+    watched = {"vit": vit.blocks[-1].attn.qkv.weight,
+               "refinement": ft.reconstruction_backbone.refinement.middle_encoder.conv_input.weight}
+    before = {k: p.detach().clone() for k, p in watched.items()}
+    _, ft_res, ft_launches = run_train_steps("finetune", ft, trainer, batch, fps_case_of, fwd_case_of)
+    # with block checkpointing a step runs every block's forward twice and its backward once
+    local_shape, global_shape = FT_SHAPES["vitl_local_b1"], FT_SHAPES["vitl_global_b1"]
+    expected = dict(fwd={local_shape: 2 * n_local * TRAIN_STEPS, global_shape: 2 * n_global * TRAIN_STEPS},
+                    dq={local_shape: n_local * TRAIN_STEPS, global_shape: n_global * TRAIN_STEPS},
+                    dkv={local_shape: n_local * TRAIN_STEPS, global_shape: n_global * TRAIN_STEPS})
+    emit("finetune", **ft_res, max_depth=ft_depth["max_depth"], max_depth_quantile=ft_depth["quantile"],
+         expected_launches={k: {str(s): n for s, n in v.items()} for k, v in expected.items()},
+         moved={k: float((p.detach() - before[k]).abs().max()) for k, p in watched.items()})
+    for kind in ("fwd", "dq", "dkv"):
+        if ft_launches[kind] != expected[kind]:
+            fail(f"finetune: {kind} launches {ft_launches[kind]}, expected {expected[kind]}")
+    unchecked = [shape for kind in ("dq", "dkv") for shape in ft_launches[kind] if shape not in bwd_case_of]
+    if unchecked:
+        fail(f"finetune: a backward kernel ran at shapes no kernel case checked: {unchecked}")
+    if not ft_res["da3_grad_norm_last_step"] > 0:
+        fail("finetune: no gradient reached DA3")
+    for k, p in watched.items():
+        if torch.equal(p.detach(), before[k]):
+            fail(f"finetune: the {k} parameter did not change in {TRAIN_STEPS} steps")
+    ft_profile = device_profile(lambda: trainer.run(trainer.init_state(), iter([batch]), max_steps=1))
+    # the profiler slows the host; against the unprofiled step the device is busy this share of the time
+    emit("finetune_profile", **ft_profile,
+         device_busy_share_of_unprofiled_step=ft_profile["device_busy_ms"] / ft_res["ms_mean"])
+
+    del ft, trainer, da3, vit, watched, before
+    torch.cuda.empty_cache()
+
+    # 14. the production train step: nested-giant frozen, AdamW on the refinement only
+    batch = train_batch(600)
+    prod, prod_depth = fit_max_depth(resdet, batch, "train")
+    trainer = Trainer(model=prod, total_steps=1000, lr=1e-3)
+    da3_before = [p.detach().clone() for p in prod.reconstruction_backbone.da3.parameters()]
+    _, tr_res, tr_launches = run_train_steps("train", prod, trainer, batch, fps_case_of, fwd_case_of)
+    n_local_g, n_global_g = attention_blocks(prod)
+    emit("train", **tr_res, preset=PRESET, max_depth=prod_depth["max_depth"], max_depth_quantile=prod_depth["quantile"])
+    if tr_launches["dq"] or tr_launches["dkv"]:
+        fail(f"train: backward kernels launched with DA3 frozen: {tr_launches}")
+    if sum(tr_launches["fwd"].values()) != (n_local_g + n_global_g) * TRAIN_STEPS:
+        fail(f"train: flash forward launches {tr_launches['fwd']}, expected {(n_local_g + n_global_g) * TRAIN_STEPS}")
+    if any(".da3." in n for n in trainer.optimizer.names):
+        fail("train: the optimizer holds state for DA3")
+    if tr_res["trained_params"] != sum(p.numel() for p in prod.reconstruction_backbone.refinement.parameters()):
+        fail(f"train: {tr_res['trained_params']} trained parameters are not the refinement's")
+    if not all(torch.equal(p.detach(), b) for p, b in zip(prod.reconstruction_backbone.da3.parameters(), da3_before)):
+        fail("train: a DA3 parameter changed")
+    del da3_before
+    tr_profile = device_profile(lambda: trainer.run(trainer.init_state(), iter([batch]), max_steps=1))
+    emit("train_profile", **tr_profile,
+         device_busy_share_of_unprofiled_step=tr_profile["device_busy_ms"] / tr_res["ms_mean"])
+    prod.eval()
+
+    # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
     mix = {key: sum(case_of[shape][key] * n for shape, n in flash_by_shape.items()) / REQUESTS
@@ -545,11 +970,32 @@ def main():
                       "computes FPS, so library_ms is null",
                  exchange_us_per_round=exchange_us, shapes=fps_cases),
         ],
-        "not_yet_ported": [
-            dict(name="flash_bwd_dq", replaces="recondet3d/ops/attention.py:185", status="not yet ported"),
-            dict(name="flash_bwd_dkv", replaces="recondet3d/ops/attention.py:231", status="not yet ported"),
-        ],
+        "not_yet_ported": [],
     }
+    per_step = {kind: {shape: n / TRAIN_STEPS for shape, n in ft_launches[kind].items()} for kind in ("dq", "dkv")}
+    for kind, fn_name, line, what in (("dq", "flash_bwd_dq", 185, "dq"), ("dkv", "flash_bwd_dkv", 231, "dk and dv")):
+        step_mix = {key: sum(bwd_case_of[shape][kind][key] * n for shape, n in per_step[kind].items())
+                    for key in ("ms", "bound_ms")}
+        shared = {key: sum(bwd_case_of[shape][key] * n for shape, n in per_step[kind].items())
+                  for key in ("plain_ms", "library_ms")}
+        table["kernels"].append(dict(
+            name=fn_name, route="cuda", source="recondet3d_torch/csrc/flash_attn_bwd.cu",
+            replaces=f"recondet3d/ops/attention.py:{line}", status="ported+checked",
+            launches=sum(ft_launches[kind].values()),
+            max_abs_err=max(c["max_abs_err"] for c in list(bwd_cases.values()) + bwd_extra),
+            ms=step_mix["ms"], plain_ms=shared["plain_ms"], bound_ms=step_mix["bound_ms"], bound_by="operations",
+            library_ms=shared["library_ms"], per="one fine-tuning step's launch mix (B=1)",
+            note=f"computes {what}; plain_ms is attention_bwd_plain (dq, dk and dv together) and library_ms the "
+                 "backward of scaled_dot_product_attention (dq, dk and dv in one call): the same numbers stand in "
+                 "both backward rows; max_abs_err is the largest over dq, dk, dv and all cases",
+            shapes=[dict(name=c["name"], shape=c["shape"], kv_len=c["kv_len"], on_path=c["on_path"],
+                         launches_per_step=per_step[kind].get(tuple(c["shape"]), 0), **c[kind],
+                         plain_ms=c["plain_ms"], library_ms=c["library_ms"], errors=c["errors"])
+                    for c in list(bwd_cases.values()) + bwd_extra]))
+    table["kernels"][0]["launches_finetune_steps"] = sum(ft_launches["fwd"].values())
+    table["kernels"][0]["launches_train_steps"] = sum(tr_launches["fwd"].values())
+    table["kernels"][1]["launches_finetune_steps"] = sum(ft_launches["fps"].values())
+    table["kernels"][1]["launches_train_steps"] = sum(tr_launches["fps"].values())
     print(json.dumps(table), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

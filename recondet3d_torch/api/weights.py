@@ -24,17 +24,22 @@ a batch norm's ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight`` /
 (``reconstruction_backbone/da3/...``, ``reconstruction_backbone/refinement/...``)
 maps to the port's ``reconstruction_backbone.da3.`` and
 ``reconstruction_backbone.refinement.`` prefixes.
+
+``flax_from_named`` runs the other way: named tensors of the port (its
+parameters, their gradients, its batch statistics) come back under the
+flax paths in the flax layouts, so that a test compares a gradient tree
+with ``jax.grad``'s leaf by leaf.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax", "torch_name", "torch_layout_shape"]
+__all__ = ["state_dict_from_flax", "flax_from_named", "torch_name", "torch_layout_shape"]
 
 # flax prefix -> torch prefix (the inverse of the JAX package's _PREFIX_MAP)
 _PREFIXES = [
@@ -139,4 +144,24 @@ def state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
             raise ValueError(f"two flax leaves map to {name!r} (second: {path!r})")
         a = _to_torch_layout(path, np.asarray(arr, dtype=np.float32))
         out[name] = torch.from_numpy(np.array(a, order="C"))  # a writable copy
+    return out
+
+
+def flax_from_named(named: Mapping[str, torch.Tensor], flax_paths: Iterable[str]) -> Dict[str, np.ndarray]:
+    """The inverse of ``state_dict_from_flax``: for every flax path
+    ("/"-joined, with its collection) the port's tensor of that leaf from
+    ``named`` (a state dict, or {name: parameter.grad}), as fp32 numpy in
+    the flax layout. A path whose tensor is missing or None (a parameter
+    that received no gradient) is left out."""
+    out: Dict[str, np.ndarray] = {}
+    for path in flax_paths:
+        t = named.get(torch_name(path))
+        if t is None:
+            continue
+        a = t.detach().float().cpu().numpy()
+        if _is_kernel(path) and a.ndim == 2:
+            a = a.T
+        elif _is_kernel(path) and a.ndim == 4 and not _DECONV.search(torch_name(path)):
+            a = np.transpose(a, (2, 3, 1, 0))  # OIHW -> HWIO
+        out[path] = np.ascontiguousarray(a)
     return out

@@ -17,83 +17,17 @@
 // mma.sync.m16n8k16 with fp32 accumulators; the S accumulator is re-packed in
 // registers as the A operand of PV. Rows beyond N and keys beyond M or kv_len
 // are masked here; the host pads nothing. Shared rows are padded to 72 bf16
-// (144 B) so ldmatrix reads are free of bank conflicts.
+// (144 B) so ldmatrix reads are free of bank conflicts. The tile loads and the
+// two products are the building blocks of flash_attn_common.cuh.
 //
 // C interface for ctypes: returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attn_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int D = 64;
-constexpr int BLOCK_M = 64;  // query rows per CTA, 16 per warp
-constexpr int BLOCK_N = 64;  // keys per K/V tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int SROW = D + 8;  // padded shared-memory row, in bf16
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
-  // src_bytes = 0 fills the 16 destination bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                            uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, `lo` in the low half (the lower column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + BLOCK_N) of a (rows, D) matrix into a padded shared tile;
-// rows >= nrows are zero-filled
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int row0, int nrows) {
-#pragma unroll
-  for (int c = threadIdx.x; c < BLOCK_N * (D / 8); c += NTHREADS) {
-    const int r = c / (D / 8), ch = c % (D / 8);
-    const int gr = row0 + r;
-    const bool ok = gr < nrows;
-    const bf16* src = g + (size_t)(ok ? gr : 0) * D + ch * 8;
-    cp_async_16(smem_u32(s + r * SROW + ch * 8), src, ok ? 16 : 0);
-  }
-}
+constexpr int BLOCK_M = TILE;  // query rows per CTA, 16 per warp
+constexpr int BLOCK_N = TILE;  // keys per K/V tile
 
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -122,25 +56,13 @@ __global__ void __launch_bounds__(NTHREADS)
   // qf[kk] covers head dims 16kk..16kk+15; a0/a2 row g, a1/a3 row g+8
   const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = (i & 1) ? r1 : r0;
-      const int col = kk * 16 + (i >> 1) * 8 + 2 * t;
-      float2 f = make_float2(0.f, 0.f);
-      if (row < N) f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + qo + (size_t)row * D + col));
-      qf[kk][i] = pack_bf16(f.x * scale, f.y * scale);
-    }
-  }
+  load_a_frags(qf, q + qo, r0, r1, N, t, scale);
 
   float o[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};  // per-thread partial row sums, reduced at the end
-
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix index, row within it
 
   for (int j = 0; j < n_blocks; ++j) {
     const int buf = j & 1;
@@ -158,19 +80,7 @@ __global__ void __launch_bounds__(NTHREADS)
     float s[BLOCK_N / 8][4];
 #pragma unroll
     for (int i = 0; i < BLOCK_N / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    const bf16* kb = Ks[buf];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BLOCK_N / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        const int key = np * 16 + (mi >> 1) * 8 + mr;
-        const int col = kk * 16 + (mi & 1) * 8;
-        ldmatrix_x4(smem_u32(kb + key * SROW + col), b0, b1, b2, b3);
-        mma_bf16(s[2 * np], qf[kk], b0, b1);
-        mma_bf16(s[2 * np + 1], qf[kk], b2, b3);
-      }
-    }
+    mma_a_bt(s, qf, Ks[buf], lane);
 
     const int kbase = j * BLOCK_N;
     if (kbase + BLOCK_N > kv_lim) {
@@ -216,22 +126,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
 
     // O += bf16(P) V: P's accumulator layout is the A-fragment layout
-    const bf16* vb = Vs[buf];
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                       pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                       pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t b0, b1, b2, b3;
-        const int key = kk * 16 + (mi & 1) * 8 + mr;
-        const int col = dp * 16 + (mi >> 1) * 8;
-        ldmatrix_x4_trans(smem_u32(vb + key * SROW + col), b0, b1, b2, b3);
-        mma_bf16(o[2 * dp], a, b0, b1);
-        mma_bf16(o[2 * dp + 1], a, b2, b3);
-      }
-    }
+    mma_p_b(o, s, Vs[buf], lane);
     __syncthreads();  // buffer `buf` is refilled at iteration j + 1
   }
 

@@ -5,10 +5,14 @@ Parameter names follow the upstream DA3 torch state dict (``norm1``,
 (``recondet3d_torch/api/weights.py``) maps them one to one onto the JAX tree.
 
 Precision follows the JAX package: the trunk's products (patch embed,
-qkv/proj/MLP, LayerScale) run in the module's ``dtype`` (bf16 on the card)
-with its parameters stored in that dtype; ``LayerNormFp32`` computes in
-fp32 and casts back. Attention goes through ``ops.attention.flash_attention``
-(the hand-written kernel on CUDA tensors).
+qkv/proj/MLP, LayerScale) run in the module's ``dtype`` (bf16 on the card).
+Their parameters are stored in ``param_dtype``: by default ``dtype`` itself
+(the inference build), or fp32 for a model that is trained, whose fp32
+master parameters are cast to ``dtype`` at use as flax casts
+``param_dtype`` to ``dtype`` (an AdamW step of 1e-4 is lost in bf16).
+``LayerNormFp32`` computes in fp32 and casts back. Attention goes through
+``ops.attention.flash_attention`` (the hand-written kernels on CUDA
+tensors, forward and backward).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from recondet3d_torch.ops.attention import flash_attention
 
 __all__ = [
     "LayerNormFp32",
+    "Linear",
     "Mlp",
     "SwiGLUFFNFused",
     "LayerScale",
@@ -45,14 +50,28 @@ class LayerNormFp32(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` with parameters stored in
+    ``param_dtype`` (default: ``dtype``, and then the casts are no-ops)."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=torch.float32, param_dtype=None, device="cuda"):
+        super().__init__(in_features, out_features, bias=bias, dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x, self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+
+
 class Mlp(nn.Module):
     """fc1 -> exact-erf GELU -> fc2."""
 
-    def __init__(self, in_features, hidden_features, out_features=None, dtype=torch.float32, device="cuda"):
+    def __init__(self, in_features, hidden_features, out_features=None, dtype=torch.float32, param_dtype=None,
+                 device="cuda"):
         super().__init__()
         out_features = out_features or in_features
-        self.fc1 = nn.Linear(in_features, hidden_features, dtype=dtype, device=device)
-        self.fc2 = nn.Linear(hidden_features, out_features, dtype=dtype, device=device)
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype, param_dtype=param_dtype, device=device)
+        self.fc2 = Linear(hidden_features, out_features, dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -62,12 +81,13 @@ class SwiGLUFFNFused(nn.Module):
     """SwiGLU FFN with the fused w12 layout and the 2/3-rounded-to-8 hidden
     size (``hidden_features`` is the pre-adjustment dim * mlp_ratio)."""
 
-    def __init__(self, in_features, hidden_features, out_features=None, dtype=torch.float32, device="cuda"):
+    def __init__(self, in_features, hidden_features, out_features=None, dtype=torch.float32, param_dtype=None,
+                 device="cuda"):
         super().__init__()
         out_features = out_features or in_features
         hidden = (int(hidden_features * 2 / 3) + 7) // 8 * 8
-        self.w12 = nn.Linear(in_features, 2 * hidden, dtype=dtype, device=device)
-        self.w3 = nn.Linear(hidden, out_features, dtype=dtype, device=device)
+        self.w12 = Linear(in_features, 2 * hidden, dtype=dtype, param_dtype=param_dtype, device=device)
+        self.w3 = Linear(hidden, out_features, dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(self, x):
         x1, x2 = self.w12(x).chunk(2, dim=-1)
@@ -87,12 +107,14 @@ class LayerScale(nn.Module):
 class PatchEmbed(nn.Module):
     """(B, H, W, 3) -> (B, N, C) via a patch-size conv (NCHW inside)."""
 
-    def __init__(self, patch_size=14, embed_dim=768, dtype=torch.float32, device="cuda"):
+    def __init__(self, patch_size=14, embed_dim=768, dtype=torch.float32, param_dtype=None, device="cuda"):
         super().__init__()
-        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size, dtype=dtype, device=device)
+        self.compute_dtype = dtype
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size, dtype=param_dtype or dtype, device=device)
 
     def forward(self, x):
-        y = self.proj(x.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
+        dt, p = self.compute_dtype, self.proj
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), p.weight.to(dt), p.bias.to(dt), p.stride)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -142,20 +164,20 @@ def apply_rope_tables(tokens: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 class Attention(nn.Module):
     def __init__(self, dim, num_heads, qkv_bias=True, proj_bias=True, qk_norm=False, use_rope=False,
-                 rope_freq=100.0, dtype=torch.float32, device="cuda"):
+                 rope_freq=100.0, dtype=torch.float32, param_dtype=None, device="cuda"):
         super().__init__()
         self.num_heads = num_heads
         self.use_rope = use_rope
         self.rope_freq = rope_freq
         self.attn_impl = "auto"  # switched only by set_attn_impl
         head_dim = dim // num_heads
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype, device=device)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype, param_dtype=param_dtype, device=device)
         if qk_norm:
             self.q_norm = LayerNormFp32(head_dim, eps=1e-5, device=device)
             self.k_norm = LayerNormFp32(head_dim, eps=1e-5, device=device)
         else:
             self.q_norm = self.k_norm = None
-        self.proj = nn.Linear(dim, dim, bias=proj_bias, dtype=dtype, device=device)
+        self.proj = Linear(dim, dim, bias=proj_bias, dtype=dtype, param_dtype=param_dtype, device=device)
 
     def forward(self, x, pos=None, kv_len=None, rope_tabs=None):
         B, N, C = x.shape
@@ -180,17 +202,18 @@ class Block(nn.Module):
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=True, proj_bias=True,
                  init_values: Optional[float] = 1.0, qk_norm=False, use_rope=False, rope_freq=100.0,
-                 ffn_layer="mlp", ln_eps=1e-6, dtype=torch.float32, device="cuda"):
+                 ffn_layer="mlp", ln_eps=1e-6, dtype=torch.float32, param_dtype=None, device="cuda"):
         super().__init__()
+        pdt = param_dtype or dtype
         self.norm1 = LayerNormFp32(dim, eps=ln_eps, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm, use_rope, rope_freq,
-                              dtype=dtype, device=device)
+                              dtype=dtype, param_dtype=pdt, device=device)
         ls = init_values is not None
-        self.ls1 = LayerScale(dim, init_values, dtype=dtype, device=device) if ls else None
+        self.ls1 = LayerScale(dim, init_values, dtype=pdt, device=device) if ls else None
         self.norm2 = LayerNormFp32(dim, eps=ln_eps, device=device)
         ffn = SwiGLUFFNFused if ffn_layer == "swiglufused" else Mlp
-        self.mlp = ffn(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
-        self.ls2 = LayerScale(dim, init_values, dtype=dtype, device=device) if ls else None
+        self.mlp = ffn(dim, int(dim * mlp_ratio), dtype=dtype, param_dtype=pdt, device=device)
+        self.ls2 = LayerScale(dim, init_values, dtype=pdt, device=device) if ls else None
 
     def forward(self, x, pos=None, kv_len=None, rope_tabs=None):
         h = self.attn(self.norm1(x), pos=pos, kv_len=kv_len, rope_tabs=rope_tabs)

@@ -18,10 +18,10 @@ __all__ = ["build_da3", "PRESETS", "MODEL_REGISTRY"]
 
 
 def _anyview(vit_name, out_layers, alt_start, head_dim_in, features, out_channels, cam_dim, dtype,
-             device):
+             device, **vit_kw):
     net = DinoViT(
         name_preset=vit_name, out_layers=tuple(out_layers), alt_start=alt_start,
-        qknorm_start=alt_start, rope_start=alt_start, cat_token=True, dtype=dtype, device=device,
+        qknorm_start=alt_start, rope_start=alt_start, cat_token=True, dtype=dtype, device=device, **vit_kw,
     )
     head = DualDPT(dim_in=head_dim_in, output_dim=2, features=features,
                    out_channels=tuple(out_channels), device=device)
@@ -31,11 +31,11 @@ def _anyview(vit_name, out_layers, alt_start, head_dim_in, features, out_channel
     )
 
 
-def _monocular(dtype, device):
+def _monocular(dtype, device, **vit_kw):
     # da3metric-large / da3mono-large: plain ViT-L + DPT(1ch) + sky head
     net = DinoViT(
         name_preset="vitl", out_layers=(4, 11, 17, 23), alt_start=-1, qknorm_start=-1,
-        rope_start=-1, cat_token=False, dtype=dtype, device=device,
+        rope_start=-1, cat_token=False, dtype=dtype, device=device, **vit_kw,
     )
     head = DPT(dim_in=1024, output_dim=1, features=256, out_channels=(256, 512, 1024, 1024), device=device)
     return DepthAnything3Net(net=net, head=head)
@@ -59,12 +59,18 @@ MODEL_REGISTRY = [
 
 
 def build_da3(name: str, dtype=torch.bfloat16, with_gs: Optional[bool] = None,
-              device="cuda", generator: Optional[torch.Generator] = None):
+              device="cuda", generator: Optional[torch.Generator] = None, param_dtype=None,
+              remat: bool = False, remat_policy: str = "block"):
     """Build a DA3 model for a preset name (HF-hub naming also accepted, e.g.
     'depth-anything/DA3NESTED-GIANT-LARGE') with random weights drawn from
     ``generator`` (default: seed 0 on ``device``).
 
-    ``dtype`` is the ViT trunk's compute and storage dtype; heads are fp32.
+    ``dtype`` is the ViT trunk's compute dtype and, unless ``param_dtype``
+    says otherwise, its storage dtype; heads are fp32. A model that is
+    trained takes ``param_dtype=torch.float32`` (fp32 master parameters,
+    cast to ``dtype`` at use) and ``remat=True`` (every trunk block under
+    activation checkpointing, the JAX package's ``remat_policy="block"``;
+    its other policies are not ported).
     ``device`` defaults to CUDA and raises where CUDA is absent; ``"meta"``
     builds shapes only. On CUDA this turns TF32 off for matmuls and cuDNN
     convolutions, so fp32 heads run in full fp32 as in the JAX package.
@@ -73,21 +79,25 @@ def build_da3(name: str, dtype=torch.bfloat16, with_gs: Optional[bool] = None,
     """
     if with_gs:
         raise NotImplementedError("with_gs=True: GSDPT is not ported yet (ROADMAP §1 item 13)")
+    if remat_policy != "block":
+        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported yet (ROADMAP §1 item 11); "
+                                  "'block' is")
     dev = resolve_device(device)
+    vit_kw = dict(param_dtype=param_dtype, remat=remat)
     key = name.split("/")[-1].lower()
     if key in ("da3metric-large", "da3mono-large"):
-        build = lambda d: _monocular(dtype, d)
+        build = lambda d: _monocular(dtype, d, **vit_kw)
     elif key == "da3nested-giant-large":
         cfg = dict(PRESETS["da3-giant"])
         vit = cfg.pop("vit")
         build = lambda d: NestedDepthAnything3Net(
-            anyview=_anyview(vit, dtype=dtype, device=d, **cfg),
-            metric=_monocular(dtype, d),
+            anyview=_anyview(vit, dtype=dtype, device=d, **cfg, **vit_kw),
+            metric=_monocular(dtype, d, **vit_kw),
         )
     elif key in PRESETS:
         cfg = dict(PRESETS[key])
         vit = cfg.pop("vit")
-        build = lambda d: _anyview(vit, dtype=dtype, device=d, **cfg)
+        build = lambda d: _anyview(vit, dtype=dtype, device=d, **cfg, **vit_kw)
     else:
         raise KeyError(f"unknown DA3 preset {name!r}; known: {MODEL_REGISTRY}")
 

@@ -5,6 +5,13 @@ reference-view reorder for S >= 3 views and ``cat_token`` outputs.
 
 Local attention batches views ((B*S, N, C)); global attention concatenates
 them into one sequence ((B, S*N, C)); both are one flash-attention call.
+
+``remat=True`` (the JAX package's ``remat`` with ``remat_policy="block"``)
+runs every block under ``torch.utils.checkpoint`` while a graph is
+recorded: a block's activations are recomputed in the backward pass instead
+of being kept, so a fine-tuning step holds one block's activations at a
+time. ``param_dtype`` stores the trunk's parameters wider than it computes
+(fp32 master parameters for training, see ``layers.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from recondet3d_torch.models.da3.layers import Block, LayerNormFp32, PatchEmbed, rope_tables
 from recondet3d_torch.utils.constants import THRESH_FOR_REF_SELECTION
@@ -107,8 +115,10 @@ class DinoViT(nn.Module):
     def __init__(self, name_preset="vits", out_layers: Sequence[int] = (5, 7, 9, 11), alt_start=-1,
                  qknorm_start=-1, rope_start=-1, rope_freq=100.0, cat_token=True, patch_size=14,
                  img_size=518, num_register_tokens=0, interpolate_offset=0.1, dtype=torch.float32,
-                 device="cuda"):
+                 param_dtype=None, remat: bool = False, device="cuda"):
         super().__init__()
+        pdt = param_dtype or dtype
+        self.remat = remat
         p = VIT_PRESETS[name_preset]
         self.embed_dim = C = p["embed_dim"]
         self.depth = p["depth"]
@@ -124,11 +134,11 @@ class DinoViT(nn.Module):
         self.dtype = dtype
         ffn = "swiglufused" if name_preset == "vitg" else "mlp"
 
-        self.patch_embed = PatchEmbed(patch_size, C, dtype=dtype, device=device)
+        self.patch_embed = PatchEmbed(patch_size, C, dtype=dtype, param_dtype=pdt, device=device)
         num_patches = (img_size // patch_size) ** 2
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, C, dtype=dtype, device=device))
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, C, dtype=pdt, device=device))
         self.camera_token = (
-            nn.Parameter(torch.zeros(1, 2, C, dtype=dtype, device=device)) if alt_start != -1 else None
+            nn.Parameter(torch.zeros(1, 2, C, dtype=pdt, device=device)) if alt_start != -1 else None
         )
         # fp32: the bicubic resize runs in the storage dtype, as in the JAX package
         self.pos_embed = nn.Parameter(torch.zeros(1, num_patches + 1, C, device=device))
@@ -138,11 +148,17 @@ class DinoViT(nn.Module):
                 C, self.num_heads, mlp_ratio=4.0, init_values=1.0,
                 qk_norm=(qknorm_start != -1 and i >= qknorm_start),
                 use_rope=(rope_start != -1 and i >= rope_start),
-                rope_freq=rope_freq, ffn_layer=ffn, ln_eps=1e-6, dtype=dtype, device=device,
+                rope_freq=rope_freq, ffn_layer=ffn, ln_eps=1e-6, dtype=dtype, param_dtype=pdt, device=device,
             )
             for i in range(self.depth)
         )
         self.norm = LayerNormFp32(C, eps=1e-5, device=device)
+        # whatever replaces the parameter's storage drops the resized copy kept by _interp_pos_embed
+        self.register_load_state_dict_post_hook(lambda module, _keys: module._pe_cache.clear())
+
+    def _apply(self, fn, *args, **kwargs):
+        self._pe_cache.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def init_tokens_(self, normal_):
         """JAX initializers: cls/pos zeros, camera token N(0, 1)."""
@@ -156,12 +172,16 @@ class DinoViT(nn.Module):
 
         Without autograd the result is kept per grid size until the
         parameter changes: torch's bicubic kernel runs one thread per output
-        pixel over all channels, slow at ViT-g width (PERF.md, Findings)."""
+        pixel over all channels, slow at ViT-g width (PERF.md, Findings).
+        The key holds the parameter's storage and version, so an optimizer
+        step (in place) makes a new entry; ``load_state_dict`` and
+        ``.to()`` / ``_apply`` clear the cache. With autograd on (a training
+        step) nothing is kept and the resize is part of the graph."""
         N = self.pos_embed.shape[1] - 1
         if n_tokens - 1 == N and width == height:
             return self.pos_embed
         gh, gw = height // self.patch_size, width // self.patch_size
-        key = (gh, gw, self.pos_embed.device, self.pos_embed._version)
+        key = (gh, gw, self.pos_embed.device, self.pos_embed.data_ptr(), self.pos_embed._version)
         if not torch.is_grad_enabled() and key in self._pe_cache:
             return self._pe_cache[key]
         M = int(math.sqrt(N))
@@ -236,12 +256,14 @@ class DinoViT(nn.Module):
                 xt = torch.cat([ct[:, :, None], xt[:, :, 1:]], dim=2)
 
             rope_on = use_rope and i >= self.rope_start
-            if alt != -1 and i >= alt and i % 2 == 1:
-                g = blk(xt.reshape(B, S * n_tok, C), rope_tabs=g_tabs if rope_on else None)
-                xt = g.reshape(B, S, n_tok, C)
+            is_global = alt != -1 and i >= alt and i % 2 == 1
+            tokens_in = xt.reshape(B, S * n_tok, C) if is_global else xt.reshape(B * S, n_tok, C)
+            tabs = (g_tabs if is_global else l_tabs) if rope_on else None
+            if self.remat and torch.is_grad_enabled():
+                xt = checkpoint(blk, tokens_in, rope_tabs=tabs, use_reentrant=False).reshape(B, S, n_tok, C)
             else:
-                l = blk(xt.reshape(B * S, n_tok, C), rope_tabs=l_tabs if rope_on else None)
-                xt = l.reshape(B, S, n_tok, C)
+                xt = blk(tokens_in, rope_tabs=tabs).reshape(B, S, n_tok, C)
+            if not is_global:
                 local_x = xt
 
             if i in self.out_layers:

@@ -1,11 +1,19 @@
 """Reconstruction backbone (port of
-``recondet3d/models/detect/reconstruction_backbone.py``, inference path):
-DA3 multi-view depth -> pseudo-LiDAR points -> point pipeline -> sparse
-refinement.
+``recondet3d/models/detect/reconstruction_backbone.py``): DA3 multi-view
+depth -> pseudo-LiDAR points -> point pipeline -> sparse refinement, with
+the refinement's occupancy loss when ground-truth points are given.
 
 Images are (B, N, H, W, 3) raw RGB 0..255; ``cam2lidar_rts`` is (B, N, 4, 4)
 in the row-vector convention (p_lidar = p_cam @ M[:3, :3].T + M[3, :3]).
-DA3 is frozen: the whole module runs under ``torch.no_grad``.
+
+Gradients. With ``freeze_da3=True`` (the default) the DA3 forward runs
+without a graph, the port's form of the JAX package's ``stop_gradient`` on
+the DA3 outputs. With ``freeze_da3=False`` depth and intrinsics stay in the
+graph, and the loss reaches the ViT through the unprojection and the row
+gathers of the point pipeline (pre-reduce, ball-query union, FPS, voxelize,
+the mean VFE); the index selections themselves carry no gradient.
+Callers that want no graph at all (``ResDet3D.simple_test``) wrap the call
+in ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -28,9 +36,6 @@ from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = ["ReconstructionBackbone"]
 
-_TRAINING = "ground-truth points and losses belong to training, which is not ported yet (ROADMAP §1 item 11)"
-
-
 class ReconstructionBackbone(nn.Module):
     def __init__(
         self,
@@ -40,6 +45,7 @@ class ReconstructionBackbone(nn.Module):
         ref_view_strategy: str = "saddle_balanced",
         use_ray_pose: bool = False,
         max_depth: float = 100.0,
+        freeze_da3: bool = True,
         filter_range: Sequence[float] = (-54.0, -54.0, -5.0, 54.0, 54.0, 6.0),
         bq_anchor_points: int = 25000,
         bq_max_radius: float = 0.5,
@@ -54,7 +60,7 @@ class ReconstructionBackbone(nn.Module):
         super().__init__()
         self.da3, self.refinement = da3, refinement
         self.process_res, self.ref_view_strategy, self.use_ray_pose = process_res, ref_view_strategy, use_ray_pose
-        self.max_depth = float(max_depth)
+        self.max_depth, self.freeze_da3 = float(max_depth), bool(freeze_da3)
         self.filter_range = tuple(float(v) for v in filter_range)
         self.bq_anchor_points, self.bq_max_radius, self.bq_sample_num = bq_anchor_points, bq_max_radius, bq_sample_num
         self.bq_grid_dim, self.bq_share_sort = bq_grid_dim, bq_share_sort
@@ -69,12 +75,12 @@ class ReconstructionBackbone(nn.Module):
     def use_color(self) -> bool:
         return bool(self.refinement is not None and self.refinement.use_color)
 
-    @torch.no_grad()
     def predict_depth(self, img):
         """DA3 multi-view depth + intrinsics from raw images: (depth
         (B, N, h, w) fp32, intrinsics (B, N, 3, 3) fp32, the DA3 outputs)."""
-        x, _ = process_tensor_batch(img, process_res=self.process_res)
-        da3_out = self.da3(x, use_ray_pose=self.use_ray_pose, ref_view_strategy=self.ref_view_strategy)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_da3):
+            x, _ = process_tensor_batch(img, process_res=self.process_res)
+            da3_out = self.da3(x, use_ray_pose=self.use_ray_pose, ref_view_strategy=self.ref_view_strategy)
         return da3_out["depth"].float(), da3_out["intrinsics"].float(), da3_out
 
     def _pipeline(self, p, m, counts):
@@ -98,7 +104,6 @@ class ReconstructionBackbone(nn.Module):
         counts["final"].append(m.sum())
         return p, m
 
-    @torch.no_grad()
     def points_from_depth(self, depth, intr, img, cam2lidar_rts):
         """Unproject, pre-reduce and downsample: (points (B, num_points, C),
         valid (B, num_points)); C = 6 (xyzrgb) when the refinement uses
@@ -122,7 +127,6 @@ class ReconstructionBackbone(nn.Module):
         self.last_stage_counts = counts
         return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
-    @torch.no_grad()
     def predict_points(self, img, cam2lidar_rts, depth_override=None):
         """(points, valid, DA3 outputs). ``depth_override`` (B, N, h, w)
         replaces the predicted depth (0 = no point) while the DA3 forward
@@ -134,19 +138,45 @@ class ReconstructionBackbone(nn.Module):
         pts, msk = self.points_from_depth(depth, intr, img, cam2lidar_rts)
         return pts, msk, da3_out
 
-    def colorize_gt_points(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
-
     @torch.no_grad()
+    def colorize_gt_points(self, gt_points, gt_valid, img, lidar2img):
+        """Project GT LiDAR points into the views and sample RGB: the first
+        camera that sees a point wins, zeros where none does. gt_points
+        (B, M, 3); img (B, N, H, W, 3) raw RGB 0..255; lidar2img
+        (B, N, 4, 4) column form (proj = pts_h @ L.T) -> (B, M, 6) xyzrgb."""
+        B, M, _ = gt_points.shape
+        N, H, W = img.shape[1:4]
+        pts_h = torch.cat([gt_points, gt_points.new_ones((B, M, 1))], dim=-1)
+        proj = torch.einsum("bmc,bndc->bnmd", pts_h, lidar2img.float())
+        z = proj[..., 2]
+        u, v = proj[..., 0] / z, proj[..., 1] / z
+        vis = (z > 0) & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)  # (B, N, M)
+        # out-of-view projections may be non-finite; they are masked below, so any pixel will do
+        ui = torch.nan_to_num(u, nan=0.0, posinf=0.0, neginf=0.0).clamp(0, W - 1).to(torch.int64)
+        vi = torch.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0).clamp(0, H - 1).to(torch.int64)
+        flat = (img.float() / 255.0).reshape(B, N, H * W, 3)
+        cols = torch.gather(flat, 2, (vi * W + ui)[..., None].expand(B, N, M, 3))
+        first = torch.argmax(vis.to(torch.uint8), dim=1)  # (B, M) first visible camera
+        picked = torch.gather(cols, 1, first[:, None, :, None].expand(B, 1, M, 3))[:, 0]
+        filled = vis.any(dim=1)
+        if gt_valid is not None:
+            filled = filled & gt_valid
+        rgb = torch.where(filled[..., None], picked, torch.zeros_like(picked))
+        return torch.cat([gt_points, rgb], dim=-1)
+
     def forward(self, img, cam2lidar_rts, gt_points=None, gt_valid=None, lidar2img=None,
                 return_loss: bool = False, depth_override=None):
-        """Returns (pseudo_points, valid, losses {}, aux)."""
-        if gt_points is not None or return_loss:
-            raise NotImplementedError(_TRAINING)
+        """Returns (pseudo_points, valid, losses, aux). Batch statistics of
+        the refinement's norms follow ``self.training`` (the JAX package's
+        ``train`` argument)."""
         pts, msk, da3_out = self.predict_points(img, cam2lidar_rts, depth_override=depth_override)
+        if self.use_color and gt_points is not None and gt_points.shape[-1] == 3 and lidar2img is not None:
+            gt_points = self.colorize_gt_points(gt_points, gt_valid, img, lidar2img)
         aux: Dict[str, Any] = {"da3": da3_out}
         losses: Dict[str, torch.Tensor] = {}
         if self.refinement is not None:
-            pts, _, r_aux = self.refinement(pts, msk)
+            pts, r_losses, r_aux = self.refinement(pts, msk, gt_points=gt_points, gt_valid=gt_valid,
+                                                   return_loss=return_loss)
+            losses.update(r_losses)
             aux.update(r_aux)
         return pts, msk, losses, aux

@@ -1,7 +1,7 @@
-"""ResDet3D, inference path (port of
-``recondet3d/models/detect/resdet3d.py``): camera images -> pseudo-LiDAR
-points and occupancy logits through the reconstruction backbone. Training
-and the detection head are not ported yet.
+"""ResDet3D (port of ``recondet3d/models/detect/resdet3d.py``): camera
+images -> pseudo-LiDAR points and occupancy logits through the
+reconstruction backbone; ``forward_train`` returns the reconstruction
+losses. The detection head is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,14 +25,26 @@ class ResDet3D(nn.Module):
         self.reconstruction_backbone = reconstruction_backbone
         self.class_names = tuple(class_names)
 
-    def forward(self, img, cam2lidar_rts, return_loss: bool = False, depth_override=None, **train_inputs):
-        if return_loss or train_inputs:
-            return self.forward_train(img, cam2lidar_rts, **train_inputs)
+    def forward(self, img, cam2lidar_rts, gt_points=None, gt_valid=None, gt_bboxes_3d=None, gt_labels_3d=None,
+                gt_bboxes_valid=None, lidar2img=None, return_loss: bool = False, depth_override=None):
+        if return_loss:
+            return self.forward_train(img, cam2lidar_rts, gt_points, gt_valid, gt_bboxes_3d, gt_labels_3d,
+                                      gt_bboxes_valid, lidar2img=lidar2img)
         return self.simple_test(img, cam2lidar_rts, depth_override=depth_override)
 
-    def forward_train(self, *args, **kwargs):
-        raise NotImplementedError(
-            "forward_train: training (ROADMAP §1 item 11) and the detection losses (item 12) are not ported yet")
+    def forward_train(self, img, cam2lidar_rts, gt_points, gt_valid=None, gt_bboxes_3d=None, gt_labels_3d=None,
+                      gt_bboxes_valid=None, lidar2img=None):
+        """(losses with 'reconstruction_'-prefixed keys, aux with
+        ``pseudo_points``, ``pseudo_valid`` and the backbone's aux).
+        ``lidar2img`` colours the GT points when the refinement uses
+        colours. Box targets are accepted for the JAX package's signature
+        and unused: there is no detection head yet (ROADMAP §1 item 12).
+        Batch statistics follow ``self.training``: call ``.train()`` first
+        for the JAX package's ``train=True``."""
+        pts, msk, r_losses, aux = self.reconstruction_backbone(
+            img, cam2lidar_rts, gt_points=gt_points, gt_valid=gt_valid, lidar2img=lidar2img, return_loss=True)
+        losses = {f"reconstruction_{k}": v for k, v in r_losses.items()}
+        return losses, {"pseudo_points": pts, "pseudo_valid": msk, **aux}
 
     @torch.no_grad()
     def simple_test(self, img, cam2lidar_rts, depth_override=None) -> Dict[str, Any]:

@@ -7,8 +7,9 @@ upsampling and skip concatenation -> 1x1 compression to the height levels.
 Public layout channels-last, (B, H, W, C) in and (B, H, W, 32) fp32 logits
 out, as in the JAX package; NCHW inside. Module names follow the flax tree
 (``enc0_conv1``, ``enc0_bn1``, ``attn0.fc1``, ``occ_head0_conv``, ...).
-Convolutions run in ``dtype`` with fp32 parameters; batch norms (eval
-statistics, eps 1e-3) and the last convolution run in fp32.
+Convolutions run in ``dtype`` with fp32 parameters; batch norms (eps 1e-3;
+running statistics in eval mode, batch statistics in train mode) and the
+last convolution run in fp32.
 """
 
 from __future__ import annotations
@@ -37,8 +38,13 @@ class _Conv(nn.Conv2d):
 
 
 class _BN(nn.Module):
-    """Batch norm over NCHW in fp32 with its running statistics (eps 1e-3);
-    batch statistics belong to training, which is not ported yet."""
+    """Batch norm over NCHW in fp32 (eps 1e-3). Eval mode: the running
+    statistics. Train mode: the batch mean and biased variance, and
+    ``running = momentum * running + (1 - momentum) * batch`` with the flax
+    momentum 0.99 and, as in flax, the biased variance (``F.batch_norm``
+    would move ``running_var`` towards the unbiased one)."""
+
+    momentum = 0.99
 
     def __init__(self, channels, device=None):
         super().__init__()
@@ -48,11 +54,15 @@ class _BN(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("batch statistics are the training path of the refinement, "
-                                      "which is not ported yet (ROADMAP §1 item 11); call .eval()")
-        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=1e-3)
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                training=False, eps=1e-3)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=1e-3)
 
 
 class _ChannelAttention(nn.Module):

@@ -1,28 +1,30 @@
-"""Sparse voxel refinement, inference path (port of
+"""Sparse voxel refinement (port of
 ``recondet3d/models/refine/refinement.py``).
 
 Pseudo points -> hard voxelize -> mean VFE -> ``SparseEncoder`` -> BEV
-height-occupancy U-Net -> occupancy logits (B, Y, X, C) fp32. The
-occupancy target and its loss belong to training and are not ported yet.
+height-occupancy U-Net -> occupancy logits (B, Y, X, C) fp32. For training,
+ground-truth points are voxelized on the occupancy grid through the soft
+occupancy VFE into a dense soft target, and ``OccupancyLoss`` compares the
+logits with it. Batch statistics of the norms follow the module's
+``training`` flag (the JAX package's ``train`` argument).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from recondet3d_torch.models.refine.bev_unet import BEVHeightOccupancy
 from recondet3d_torch.models.refine.sparse_encoder import SparseEncoder
-from recondet3d_torch.models.refine.vfe import hard_simple_vfe
+from recondet3d_torch.models.losses.occupancy_loss import OccupancyLoss
+from recondet3d_torch.models.refine.vfe import hard_simple_vfe, soft_voxel_occupancy_vfe
 from recondet3d_torch.ops.voxelize import voxelize
 from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = ["SparseRefinement", "batch_voxelize", "init_refinement_parameters_"]
-
-_TRAINING = "the occupancy target and loss are not ported yet (ROADMAP §1 item 11)"
-
 
 def batch_voxelize(points, valid, *, point_cloud_range, voxel_size, max_points, max_voxels):
     """(B, N, C) -> flattened voxels (B*V, max_points, C), coords (B*V, 4)
@@ -80,9 +82,12 @@ class SparseRefinement(nn.Module):
         self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.max_num_points, self.max_voxels = int(max_num_points), int(max_voxels)
-        # the training target's settings, kept so that a config of the JAX package builds unchanged
-        self.occ_max_voxels, self.occ_max_num_points, self.soft_vfe = occ_max_voxels, occ_max_num_points, soft_vfe
-        self.loss_type, self.occupancy_loss_weight = loss_type, occupancy_loss_weight
+        self.occ_feature_shape = tuple(int(v) for v in occ_feature_shape)
+        self.occ_max_voxels, self.occ_max_num_points = int(occ_max_voxels), int(occ_max_num_points)
+        self.soft_vfe = tuple(soft_vfe)
+        pcr = np.asarray(self.point_cloud_range, np.float64)
+        self._occ_voxel_size = tuple((pcr[3:] - pcr[:3]) / np.asarray(self.occ_feature_shape, np.float64))
+        self.loss_occupancy = OccupancyLoss(loss_type=loss_type, loss_weight=occupancy_loss_weight)
         self.use_color, self.dtype = bool(use_color), dtype
         self.middle_encoder = SparseEncoder(
             in_channels=6 if use_color else 3, sparse_shape=tuple(sparse_shape),
@@ -95,10 +100,10 @@ class SparseRefinement(nn.Module):
     def forward(self, pseudo_points: torch.Tensor, pseudo_valid: Optional[torch.Tensor] = None,
                 gt_points=None, gt_valid=None, return_loss: bool = False):
         """pseudo_points (B, N, C), pseudo_valid (B, N) bool -> (refined
-        points (the input), losses {}, aux with ``occupancy_logits``,
-        ``pseudo_coors`` and ``bev_features``)."""
-        if gt_points is not None or return_loss:
-            raise NotImplementedError(_TRAINING)
+        points (the input), losses, aux with ``occupancy_logits``,
+        ``pseudo_coors`` and ``bev_features``). With ``gt_points`` (B, M, 3)
+        aux also holds ``gt_occupancy_map`` and, when ``return_loss`` is
+        set, losses holds ``loss_occupancy``."""
         B = pseudo_points.shape[0]
         pts = pseudo_points if self.use_color else pseudo_points[..., :3]
         if pseudo_valid is None:
@@ -116,7 +121,29 @@ class SparseRefinement(nn.Module):
             occupancy_logits = self.bev_height_occupancy(sparse_features)
         aux = {"occupancy_logits": occupancy_logits, "pseudo_coors": coors, "bev_features": sparse_features}
         losses: Dict[str, torch.Tensor] = {}
+        if gt_points is not None:
+            with stage("gt_occupancy_map"):
+                aux["gt_occupancy_map"] = self.generate_gt_occupancy_map(gt_points, gt_valid)
+            if return_loss:
+                losses["loss_occupancy"] = self.loss_occupancy(occupancy_logits, aux["gt_occupancy_map"],
+                                                               use_logits=True)
         return pseudo_points, losses, aux
 
+    @torch.no_grad()
     def generate_gt_occupancy_map(self, gt_points, gt_valid=None):
-        raise NotImplementedError(_TRAINING)
+        """GT points (B, M, >=3) -> dense soft occupancy (B, Y, X, C) fp32, a constant of the loss."""
+        B = gt_points.shape[0]
+        if gt_valid is None:
+            gt_valid = torch.ones(gt_points.shape[:2], dtype=torch.bool, device=gt_points.device)
+        voxels, coors, nums = batch_voxelize(
+            gt_points[..., :3], gt_valid, point_cloud_range=self.point_cloud_range, voxel_size=self._occ_voxel_size,
+            max_points=self.occ_max_num_points, max_voxels=self.occ_max_voxels)
+        occ = soft_voxel_occupancy_vfe(voxels, nums, *self.soft_vfe)[:, 0]
+        X, Y, C = self.occ_feature_shape
+        c = coors.long()
+        valid = c[:, 0] >= 0
+        gt_map = torch.zeros((B + 1, Y, X, C), dtype=torch.float32, device=gt_points.device)  # plane B takes the pads
+        b = torch.where(valid, c[:, 0], torch.full_like(c[:, 0], B))
+        zz, yy, xx = (torch.where(valid, c[:, i], torch.zeros_like(c[:, i])) for i in (1, 2, 3))
+        gt_map[b, yy, xx, zz] = occ
+        return gt_map[:B]

@@ -1,5 +1,5 @@
 """SECOND-style sparse middle encoder (port of
-``recondet3d/models/refine/sparse_encoder.py``, inference path).
+``recondet3d/models/refine/sparse_encoder.py``).
 
 Module and parameter names follow the flax tree (``conv_input``,
 ``encoder_layer1_block0.conv1``, ``encoder_layer1_down.norm``, ...), with
@@ -10,7 +10,7 @@ layout, a norm has ``weight`` / ``bias`` / ``running_mean`` /
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,27 +30,38 @@ from recondet3d_torch.ops.sparse_conv import (
 
 __all__ = ["SparseEncoder", "MaskedBatchNorm"]
 
-_TRAINING = ("batch statistics are the training path of the refinement, "
-             "which is not ported yet (ROADMAP §1 item 11); call .eval()")
-
-
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (N, C) rows, evaluated with its running statistics in
-    fp32 (eps 1e-3) and returned in the input's dtype. The masked batch
-    statistics of training are not ported yet."""
+    """BatchNorm over (N, C) rows in fp32 (eps 1e-3), returned in the
+    input's dtype. In eval mode it uses its running statistics. In train
+    mode it normalises with the mean and the biased variance of the rows
+    that ``mask`` marks valid (one batch-global pair, whatever the batch
+    size) and moves the running statistics towards them:
+    ``running = momentum * running + (1 - momentum) * batch`` with the flax
+    momentum 0.99."""
 
-    def __init__(self, channels: int, eps: float = 1e-3, device=None):
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.99, device=None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(_TRAINING)
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            if mask is None:
+                raise ValueError("MaskedBatchNorm in train mode needs the validity mask of its rows")
+            m = mask.to(torch.float32)[:, None]
+            n = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(dim=0) / n
+            var = ((xf - mean) ** 2 * m).sum(dim=0) / n
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -77,9 +88,9 @@ class _SparseBasicBlock(nn.Module):
         self.conv2 = _SubmConv(channels, channels, device)
         self.norm2 = MaskedBatchNorm(channels, device=device)
 
-    def forward(self, features, nbr_map):
-        out = F.relu(self.norm1(self.conv1(features, nbr_map)))
-        out = self.norm2(self.conv2(out, nbr_map))
+    def forward(self, features, nbr_map, mask):
+        out = F.relu(self.norm1(self.conv1(features, nbr_map), mask))
+        out = self.norm2(self.conv2(out, nbr_map), mask)
         return F.relu(out + features)
 
 
@@ -95,7 +106,7 @@ class _DownConv(nn.Module):
     def forward(self, st: SparseTensor) -> SparseTensor:
         out = sparse_conv_downsample(st, self.weight, None, kernel=self.kernel, stride=self.stride,
                                      padding=self.padding, max_out=self.max_out)
-        feats = F.relu(self.norm(out.features))
+        feats = F.relu(self.norm(out.features, out.valid))
         feats = torch.where(out.valid[:, None], feats, torch.zeros_like(feats))
         return SparseTensor(feats, out.coords, out.grid, out.batch_size)
 
@@ -143,24 +154,29 @@ class SparseEncoder(nn.Module):
             grid = _out_grid(grid, mod.kernel, mod.stride, mod.padding)
         self.bev_channels = output_channels * grid[0]  # to_dense_bev folds the depth planes left into channels
 
+    @staticmethod
+    @torch.no_grad()
+    def _neighbor_map(st: SparseTensor) -> torch.Tensor:
+        return build_neighbor_map(st, 3)
+
     def forward(self, voxel_features: torch.Tensor, coors: torch.Tensor, batch_size: int) -> torch.Tensor:
         """voxel_features (N, C), coors (N, 4) [b, z, y, x] (-1 pads) ->
         BEV features (B, Y/8, X/8, output_channels * Z_out)."""
         st = sort_by_column(sparse_tensor_from_voxels(voxel_features, coors, self.sparse_shape, batch_size))
-        nbr = build_neighbor_map(st, 3)
+        nbr = self._neighbor_map(st)
         mask = st.valid
 
-        x = F.relu(self.conv_input_norm(self.conv_input(st.features, nbr)))
+        x = F.relu(self.conv_input_norm(self.conv_input(st.features, nbr), mask))
         x = torch.where(mask[:, None], x, torch.zeros_like(x))
         st = SparseTensor(x, st.coords, st.grid, st.batch_size)
         for name, is_down in self._layers:
             mod = getattr(self, name)
             if is_down:
                 st = mod(st)
-                nbr = build_neighbor_map(st, 3)
+                nbr = self._neighbor_map(st)
                 mask = st.valid
             else:
-                feats = mod(st.features, nbr)
+                feats = mod(st.features, nbr, mask)
                 feats = torch.where(mask[:, None], feats, torch.zeros_like(feats))
                 st = SparseTensor(feats, st.coords, st.grid, st.batch_size)
         return to_dense_bev(self.conv_out(st))

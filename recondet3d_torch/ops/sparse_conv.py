@@ -1,5 +1,5 @@
 """Sparse 3D convolution on fixed-capacity active sets (port of
-``recondet3d/ops/sparse_conv.py``, forward only).
+``recondet3d/ops/sparse_conv.py``).
 
 Active voxels live in fixed-capacity buffers: features (N, C) and coords
 (N, 4) [b, z, y, x], invalid rows marked by coords < 0. A convolution is
@@ -11,7 +11,14 @@ row of the neighbour or N; a strided conv ranks its output cells by
 ascending (b, y, x, z) id and keeps the lowest ``max_out``. The lookups
 are one sort plus ``torch.searchsorted`` over linear cell ids; no table
 over the dense grid is built, and nothing is read back from the device.
-The gradients of the JAX package's custom VJPs are not ported yet.
+
+Gradients follow the JAX package's custom VJP (``_conv_core``, ``:361-404``):
+the backward of the row gather is itself a gather through ``bwd_map``
+(entry (n, k) = the output row that reads input row n at tap k), not
+autograd's scatter-add of M * K rows with atomics, so gradients are the
+same from run to run; the weight gradient is one fp32 product over the
+re-gathered rows. A submanifold map is symmetric, so its ``bwd_map`` is
+the map itself with the taps mirrored (a flip of the weights).
 """
 
 from __future__ import annotations
@@ -115,13 +122,37 @@ def _gather_matmul(features: torch.Tensor, gather_map: torch.Tensor, weight: tor
     return gathered @ weight.to(features.dtype).reshape(K * Cin, -1)
 
 
+class _ConvCore(torch.autograd.Function):
+    """``_gather_matmul`` with a gather-form backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, features, gather_map, bwd_map, weight, flip_bwd: bool):
+        ctx.save_for_backward(features, gather_map, bwd_map, weight)
+        ctx.flip_bwd = flip_bwd
+        return _gather_matmul(features, gather_map, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, gather_map, bwd_map, weight = ctx.saved_tensors
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            wb = weight.flip(0) if ctx.flip_bwd else weight
+            df = _gather_matmul(g.to(features.dtype), bwd_map, wb.transpose(1, 2))
+        if ctx.needs_input_grad[3]:
+            M, K = gather_map.shape
+            padded = torch.cat([features, features.new_zeros((1, features.shape[1]))], dim=0)
+            gathered = padded[gather_map].reshape(M, -1).float()
+            dw = (gathered.t() @ g.float()).reshape(weight.shape).to(weight.dtype)
+        return df, None, None, dw, None
+
+
 def subm_conv_apply(features: torch.Tensor, nbr_map: torch.Tensor, weight: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply a (K, Cin, Cout) kernel on a submanifold neighbour map:
     features (N, Cin), nbr_map (N, K) -> (N, Cout)."""
     if nbr_map.shape[0] != features.shape[0]:
         raise ValueError("subm conv requires square maps")
-    out = _gather_matmul(features, nbr_map, weight)
+    out = _ConvCore.apply(features, nbr_map, nbr_map, weight, True)
     if bias is not None:
         out = out + bias.to(features.dtype)
     return out
@@ -131,9 +162,11 @@ def _out_grid(grid, kernel, stride, padding) -> Tuple[int, int, int]:
     return tuple((g + 2 * p - k) // s + 1 for g, k, s, p in zip(grid, kernel, stride, padding))
 
 
-def _downsample_gather_map(coords, *, grid, batch_size, kernel, stride, padding, max_out):
-    """Output coords (max_out, 4) and (max_out, K) gather rows: entry (m, k)
-    is the input row whose voxel sits at tap k of output voxel m, or N.
+def _downsample_gather_map(coords, *, grid, batch_size, kernel, stride, padding, max_out, with_bwd=True):
+    """Output coords (max_out, 4), (max_out, K) gather rows: entry (m, k)
+    is the input row whose voxel sits at tap k of output voxel m, or N; and
+    (``with_bwd``; else None) the (N, K) backward rows: entry (n, k) is the
+    output row that reads input row n at tap k, or max_out.
 
     Each input voxel lists its <= prod((k-1)//s + 1) candidate output
     cells; one sort of their column-major ids dedups and ranks them."""
@@ -188,7 +221,13 @@ def _downsample_gather_map(coords, *, grid, batch_size, kernel, stride, padding,
     slot = torch.where(mm < max_out, mm * K + tap_lin, torch.full_like(mm, max_out * K))
     rows = torch.full((max_out * K + 1,), N, dtype=torch.long, device=dev)
     rows[slot.reshape(-1)] = torch.arange(N, device=dev)[:, None].expand(N, KC).reshape(-1)
-    return out_coords, rows[: max_out * K].reshape(max_out, K), out_grid
+    if not with_bwd:
+        return out_coords, rows[: max_out * K].reshape(max_out, K), None, out_grid
+    # the same pairs seen from the input row: (n, tap) -> m
+    bslot = torch.where(mm < max_out, torch.arange(N, device=dev)[:, None] * K + tap_lin, torch.full_like(mm, N * K))
+    brows = torch.full((N * K + 1,), max_out, dtype=torch.long, device=dev)
+    brows[bslot.reshape(-1)] = mm.reshape(-1)
+    return out_coords, rows[: max_out * K].reshape(max_out, K), brows[: N * K].reshape(N, K), out_grid
 
 
 def sparse_conv_downsample(st: SparseTensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
@@ -196,10 +235,15 @@ def sparse_conv_downsample(st: SparseTensor, weight: torch.Tensor, bias: Optiona
     """Strided sparse conv producing a new (smaller) active set of
     ``max_out`` rows, sorted by (b, y, x, z), invalid rows last."""
     kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
-    out_coords, gather_rows, out_grid = _downsample_gather_map(
-        st.coords, grid=st.grid, batch_size=st.batch_size, kernel=kernel, stride=stride, padding=padding,
-        max_out=int(max_out))
-    out = _gather_matmul(st.features, gather_rows, weight)
+    needs_grad = torch.is_grad_enabled() and (st.features.requires_grad or weight.requires_grad)
+    with torch.no_grad():
+        out_coords, gather_rows, bwd_rows, out_grid = _downsample_gather_map(
+            st.coords, grid=st.grid, batch_size=st.batch_size, kernel=kernel, stride=stride, padding=padding,
+            max_out=int(max_out), with_bwd=needs_grad)
+    if needs_grad:
+        out = _ConvCore.apply(st.features, gather_rows, bwd_rows, weight, False)
+    else:
+        out = _gather_matmul(st.features, gather_rows, weight)
     if bias is not None:
         out = out + bias.to(out.dtype)
     out = torch.where((out_coords[:, 0] >= 0)[:, None], out, torch.zeros_like(out))

@@ -1,4 +1,5 @@
-"""Port vs JAX package for the sparse refinement on the CPU in fp32: VFE,
+"""Port vs JAX package for the sparse refinement's inference path on the CPU
+in fp32 (its training path: tests/test_torch_refinement_train.py): VFE,
 ``MaskedBatchNorm`` (running statistics), ``SparseEncoder`` (through the
 dense BEV map, so row order does not matter), the BEV U-Net with both
 values of ``bug_compatible_relu_logits``, ``batch_voxelize`` and the whole
@@ -102,7 +103,7 @@ def test_masked_batch_norm_eval_matches_jax():
     bn = load_variables(MaskedBatchNorm(6), variables)
     np.testing.assert_allclose(bn(t(x)).detach().numpy(), np.asarray(ref), atol=1e-6, rtol=1e-5)
     assert bn(t(x).to(torch.bfloat16)).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="validity mask"):  # batch statistics need the mask of the rows
         bn.train()(t(x))
 
 
@@ -171,17 +172,22 @@ def test_sparse_refinement_matches_jax_and_bridge_carries_batch_stats():
 
 
 def test_training_parts_raise_naming_the_roadmap_item():
+    """The training parts of the refinement are ported and answer; what is
+    still to port of training raises naming its ROADMAP item."""
     ref = SparseRefinement(**TINY).eval()
     pts, valid = tiny_cloud(1, 64, 9)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ref(t(pts), t(valid), gt_points=t(pts))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ref(t(pts), t(valid), return_loss=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ref.generate_gt_occupancy_map(t(pts))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        soft_voxel_occupancy_vfe(None, None)
+    _, losses, aux = ref(t(pts), t(valid), gt_points=t(pts))
+    assert losses == {} and tuple(aux["gt_occupancy_map"].shape) == (1, 20, 20, 8)
+    _, losses, _ = ref(t(pts), t(valid), gt_points=t(pts), return_loss=True)
+    assert set(losses) == {"loss_occupancy"} and losses["loss_occupancy"].requires_grad
+    assert tuple(ref.generate_gt_occupancy_map(t(pts)).shape) == (1, 20, 20, 8)
+    assert tuple(soft_voxel_occupancy_vfe(torch.zeros(4, 3, 3), torch.tensor([0, 1, 2, 3])).shape) == (4, 1)
+    from recondet3d_torch.models.da3 import build_da3
     from recondet3d_torch.models.losses.occupancy_loss import OccupancyLoss
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        OccupancyLoss()
+    assert OccupancyLoss().loss_type == "bce"
+    with pytest.raises(ValueError):
+        OccupancyLoss(loss_type="hinge")
+    for policy in ("dots", "global", "attn"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            build_da3("da3-small", device="cpu", remat=True, remat_policy=policy)

@@ -1,4 +1,5 @@
-"""The ResDet3D inference path after depth, port vs JAX package, on the shapes of
+"""The ResDet3D inference path after depth (the training path:
+tests/test_torch_resdet3d_train.py), port vs JAX package, on the shapes of
 ``configs/resdet3d_tiny_test.py`` (CPU, fp32): one depth map, intrinsics
 and rig go through both packages' ``points_from_depth`` and refinement,
 with the refinement's weights and batch statistics carried by the weight
@@ -170,14 +171,15 @@ def test_unported_parts_raise_and_device_rule():
     port = build_resdet3d("da3-small", dtype=torch.float32, device="cpu", refinement=False, **BACKBONE)
     assert port.reconstruction_backbone.refinement is None and not port.training
     img, depth, intr, c2l = (torch.from_numpy(a) for a in _inputs(5))
-    with pytest.raises(NotImplementedError, match="item 11.*item 12"):
-        port.forward_train(img, c2l)
+    # the training route is ported (tests/test_torch_resdet3d_train.py); without a refinement it has no loss
+    losses, aux = port.forward_train(img, c2l, torch.zeros(B, 8, 3))
+    assert losses == {} and tuple(aux["pseudo_points"].shape) == (B, 256, 3)
+    assert port(img, c2l, gt_points=torch.zeros(B, 8, 3), return_loss=True)[0] == {}
+    # of training, the rematerialisation policies other than 'block' are still to port
+    from recondet3d_torch.models.da3 import build_da3
+
     with pytest.raises(NotImplementedError, match="item 11"):
-        port(img, c2l, return_loss=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.reconstruction_backbone(img, c2l, gt_points=torch.zeros(B, 8, 3))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.reconstruction_backbone.colorize_gt_points()
+        build_da3("da3-small", device="cpu", remat=True, remat_policy="dots")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_resdet3d("da3-small")
