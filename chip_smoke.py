@@ -7,12 +7,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. env      torch / CUDA versions and the card (nvidia-smi name, power limit).
 2. build    compiles every CUDA kernel of the port from ``recondet3d_torch/csrc``
-            (one nvcc per source, started together).
+            (one nvcc per source, started together); per kernel the ptxas
+            registers, spills and shared memory, and the Hopper kernels'
+            wgmma / TMA instructions counted in the SASS (``cuobjdump``). Fails on a spill or an ignored
+            ``setmaxnreg`` in the forward or dk/dv kernel, or if either has
+            no HGMMA or no TMA load.
 3. kernel   the flash-attention kernel vs its plain PyTorch version (fp32
             math on the same bf16 values) at the DA3 nested-giant-large
-            shapes, with times of the kernel, the plain version, one
+            shapes, plus one case at a scale that is no power of two, with
+            times of the kernel, the plain version, one
             ``scaled_dot_product_attention`` call (a yardstick only, never
-            used by the port) and the card's lower bound.
+            used by the port), the card's lower bound and the floor of the
+            exponentials alone (one ex2 per needed score on the MUFU).
 4. model    ``build_resdet3d("da3nested-giant-large")`` at the benchmark
             configuration of the JAX package, random weights from seed 0.
 5. slice    the DA3 slice of the main path: requests of B=2 scenes x 6
@@ -42,9 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. bwd      the two flash-attention backward kernels (dq; dk and dv) vs
             their plain PyTorch version on the same bf16 values at the
             shapes a fine-tuning step gives them (ViT-L local and global),
-            one case with ``kv_len`` and the ViT-g global shape; times of
-            each kernel, the plain version, the backward of
-            ``scaled_dot_product_attention`` (a yardstick only) and the bound.
+            one case with ``kv_len``, one at a scale that is no power of two
+            and the ViT-g global shape; same bits run to run; times of each
+            kernel, the plain version, the backward of
+            ``scaled_dot_product_attention`` (a yardstick only), the bound
+            and the exponentials' floor.
 12. finetune ``Trainer`` with ``frozen_patterns=()`` on
             ``build_resdet3d("da3-large", freeze_da3=False)``: fp32 master
             parameters, bf16 compute, every ViT block under checkpointing
@@ -70,7 +78,11 @@ Needs CUDA; exits non-zero without it (or without the rest of the repo).
 
 from __future__ import annotations
 
+import functools
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -106,6 +118,7 @@ from recondet3d_torch.utils.geometry import depth_to_points_cam
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+SMS, EX2_PER_CLOCK_PER_SM = 132, 16  # H100 SXM: SMs, MUFU ex2 results per clock per SM
 # kernel vs the plain version in fp32 on the same bf16 values. Out values are
 # ~0.02-0.3 at these shapes: the absolute gate sits a few bf16 ulps above the
 # readings (7.5e-4 to 2.0e-3 on an H100), the relative L2 gate catches faults
@@ -193,15 +206,32 @@ def bound_ms(BH, N, kv_rows, D=64):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_case(name, shape, kv_len, seed, iters=20):
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz():
+    """The card's maximum SM clock as ``nvidia-smi`` reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def exp_floor_ms(N, kv_rows):
+    """The time of the exponentials alone: one ex2 per needed (query, key)
+    score at the MUFU's rate, at the card's maximum SM clock."""
+    return 1e3 * N * float(kv_rows.sum()) / (EX2_PER_CLOCK_PER_SM * SMS * max_sm_clock_hz())
+
+
+def kernel_case(name, shape, kv_len, seed, iters=20, scale=None):
+    """The forward kernel against ``attention_plain`` on the scores of the
+    TPU kernel: bf16(q * scale) k^T, formed here in fp32 and rounded."""
     Bq, H, N, M = shape
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((Bq, H, n, 64), dtype=np.float32)).cuda().to(torch.bfloat16)
                for n in (N, M, M))
     kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    out, lse = flash_attention_fwd(q, k, v, kvl)
+    out, lse = flash_attention_fwd(q, k, v, kvl, scale)
     torch.cuda.synchronize()
-    ref_out, ref_lse = attention_plain(q.float(), k.float(), v.float(), kvl)
+    qs = (q.float() * (64 ** -0.5 if scale is None else scale)).to(q.dtype)
+    ref_out, ref_lse = attention_plain(qs.float(), k.float(), v.float(), kvl, 1.0)
     err_out = (out.float() - ref_out).abs().max().item()
     rel_out = rel_l2(out, ref_out)
     err_lse = (lse - ref_lse).abs().max().item()
@@ -215,14 +245,14 @@ def kernel_case(name, shape, kv_len, seed, iters=20):
     else:
         mask = (torch.arange(M, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
         rows = np.repeat(np.minimum(np.asarray(kv_len, np.float64), M), H)
-    k_ms = time_ms(lambda: flash_attention_fwd(q, k, v, kvl), iters)
-    p_ms = time_ms(lambda: attention_plain(q, k, v, kvl), 3, warmup=1)
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters)
+    k_ms = time_ms(lambda: flash_attention_fwd(q, k, v, kvl, scale), iters)
+    p_ms = time_ms(lambda: attention_plain(q, k, v, kvl, scale), 3, warmup=1)
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), iters)
     b_ms, b_by = bound_ms(Bq * H, N, rows)
-    res = dict(name=name, shape=list(shape), kv_len=kv_len, max_abs_err=err_out, rel_l2_err=rel_out,
+    res = dict(name=name, shape=list(shape), kv_len=kv_len, scale=scale, max_abs_err=err_out, rel_l2_err=rel_out,
                max_abs_err_lse=err_lse, tol=dict(out=OUT_TOL, out_rel_l2=OUT_REL_TOL, lse=LSE_TOL),
                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-               tflops=4.0 * N * 64 * rows.sum() / (k_ms * 1e-3) / 1e12, ok=ok)
+               exp_floor_ms=exp_floor_ms(N, rows), tflops=4.0 * N * 64 * rows.sum() / (k_ms * 1e-3) / 1e12, ok=ok)
     emit("kernel", **res)
     if not ok:
         fail(f"flash kernel disagrees with the plain version at {name}: "
@@ -242,7 +272,7 @@ def bwd_bound_ms(BH, N, M, kv_rows, ops_per_pair, n_out_rows, D=64):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bwd_case(name, shape, kv_len, seed, on_path, iters=10):
+def bwd_case(name, shape, kv_len, seed, on_path, iters=10, scale=None):
     """Both backward kernels against ``attention_bwd_plain`` on one set of
     bf16 values, with out and lse from the forward kernel."""
     Bq, H, N, M = shape
@@ -250,17 +280,17 @@ def bwd_case(name, shape, kv_len, seed, on_path, iters=10):
     q, k, v, do = (torch.from_numpy(rng.standard_normal((Bq, H, n, 64), dtype=np.float32)).cuda().to(torch.bfloat16)
                    for n in (N, M, M, N))
     kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    out, lse = flash_attention_fwd(q, k, v, kvl)
-    got = flash_attention_bwd(q, k, v, out, lse, do, kvl)
+    out, lse = flash_attention_fwd(q, k, v, kvl, scale)
+    got = flash_attention_bwd(q, k, v, out, lse, do, kvl, scale)
     torch.cuda.synchronize()
-    ref = attention_bwd_plain(q, k, v, out, lse, do, kvl)
+    ref = attention_bwd_plain(q, k, v, out, lse, do, kvl, scale)
     errs = {}
     for key, a, r in zip(("dq", "dk", "dv"), got, ref):
         errs[key] = dict(rel_l2=rel_l2(a, r), max_abs=(a.float() - r.float()).abs().max().item(),
                          finite=bool(torch.isfinite(a).all()))
     del ref
     ok = all(e["rel_l2"] <= BWD_REL_TOL and e["max_abs"] <= BWD_ABS_TOL and e["finite"] for e in errs.values())
-    again = flash_attention_bwd(q, k, v, out, lse, do, kvl)
+    again = flash_attention_bwd(q, k, v, out, lse, do, kvl, scale)
     same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
 
     delta = (do.float() * out.float()).sum(dim=-1)
@@ -269,13 +299,13 @@ def bwd_case(name, shape, kv_len, seed, on_path, iters=10):
     else:
         mask = (torch.arange(M, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
         rows = np.repeat(np.minimum(np.asarray(kv_len, np.float64), M), H)
-    dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, kvl), iters)
-    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl), iters)
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, kvl, scale), iters)
+    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, kvl, scale), iters)
     delta_ms = time_ms(lambda: (do.float() * out.float()).sum(dim=-1), iters)
-    p_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, kvl), 1, warmup=1)
+    p_ms = time_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, kvl, scale), 1, warmup=1)
     # the library's backward, timed alone: one autograd call over a forward made once
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
     # (the least of three timings: at the small shapes this call is bound by autograd's host work, which varies)
     l_ms = min(time_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), iters)
                for _ in range(3))
@@ -283,12 +313,15 @@ def bwd_case(name, shape, kv_len, seed, on_path, iters=10):
     dq_b, dq_by = bwd_bound_ms(Bq * H, N, M, rows, 6, N)
     dkv_b, dkv_by = bwd_bound_ms(Bq * H, N, M, rows, 8, 2 * M)
     pairs = N * 64 * rows.sum()
-    res = dict(name=name, shape=list(shape), kv_len=kv_len, on_path=on_path, errors=errs,
+    floor = exp_floor_ms(N, rows)  # dq and dk/dv each recompute P: one ex2 per needed score
+    res = dict(name=name, shape=list(shape), kv_len=kv_len, scale=scale, on_path=on_path, errors=errs,
                max_abs_err=max(e["max_abs"] for e in errs.values()),
                rel_l2_err=max(e["rel_l2"] for e in errs.values()),
                tol=dict(rel_l2=BWD_REL_TOL, max_abs=BWD_ABS_TOL), same_bits_run_to_run=same_bits,
-               dq=dict(ms=dq_ms, bound_ms=dq_b, bound_by=dq_by, tflops=6.0 * pairs / (dq_ms * 1e-3) / 1e12),
-               dkv=dict(ms=dkv_ms, bound_ms=dkv_b, bound_by=dkv_by, tflops=8.0 * pairs / (dkv_ms * 1e-3) / 1e12),
+               dq=dict(ms=dq_ms, bound_ms=dq_b, bound_by=dq_by, exp_floor_ms=floor,
+                       tflops=6.0 * pairs / (dq_ms * 1e-3) / 1e12),
+               dkv=dict(ms=dkv_ms, bound_ms=dkv_b, bound_by=dkv_by, exp_floor_ms=floor,
+                        tflops=8.0 * pairs / (dkv_ms * 1e-3) / 1e12),
                delta_ms=delta_ms, plain_ms=p_ms, library_ms=l_ms, ok=ok and same_bits)
     emit("bwd_kernel", **res)
     if not res["ok"]:
@@ -643,6 +676,48 @@ def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
     return state, res, launches
 
 
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")  # the two kernels on wgmma / TMA / mbarriers
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "MUFU.EX2", "SYNCS")
+
+
+def ptxas_report(log):
+    """Per kernel (mangled name) from ``nvcc -Xptxas -v``: registers at entry,
+    spill stores / loads, stack and static shared-memory bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur].update(registers=int(m.group(1)), static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def instruction_counts(lib):
+    """{kernel: {opcode: count}} of a few opcodes in ``cuobjdump -sass`` of a
+    library; kernels named by their unmangled base name."""
+    exe = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : .*?([a-z][a-z_]*_kernel)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur:
+            for op in SASS_OPS:
+                if op in line:
+                    counts[cur][op] += 1
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -652,18 +727,36 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     emit("env", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
-         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), nvidia_smi=smi)
+         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), nvidia_smi=smi,
+         max_sm_clock_mhz=max_sm_clock_hz() / 1e6)
 
     # 2. build
     t0 = time.perf_counter()
-    load_kernels()
-    emit("build", seconds=time.perf_counter() - t0,
-         kernels={k: {"nvcc_s": v["seconds"], "ptxas": [l.strip() for l in v["ptxas"].splitlines() if "Used" in l or "spill" in l]}
-                  for k, v in BUILD_LOG.items()})
+    libs = load_kernels()
+    build_s = time.perf_counter() - t0
+    kernels = {}
+    for stem, entry in BUILD_LOG.items():
+        sass = instruction_counts(libs[stem]._name)
+        for fn, info in ptxas_report(entry["ptxas"]).items():
+            short = next((k for k in sass if k in fn), fn)
+            kernels[short] = dict(info, source=f"{stem}.cu", sass=sass.get(short, {}))
+    warnings = {k: [l.strip() for l in v["ptxas"].splitlines() if "warning" in l.lower()] for k, v in BUILD_LOG.items()}
+    emit("build", seconds=build_s, nvcc_s={k: v["seconds"] for k, v in BUILD_LOG.items()}, kernels=kernels,
+         warnings=warnings)
+    for name in HOPPER_KERNELS:
+        info = kernels.get(name)
+        if info is None or info.get("spill_stores", 1) or info.get("spill_loads", 1):
+            fail(f"{name}: ptxas reports spills or no entry: {info}")
+        if not info["sass"].get("HGMMA") or not info["sass"].get("UTMALDG"):
+            fail(f"{name}: no wgmma or no TMA load in its SASS: {info['sass']}")
+    if any("setmaxnreg ignored" in l for stem in ("flash_attn_fwd", "flash_attn_bwd") for l in warnings[stem]):
+        fail(f"ptxas ignored setmaxnreg: {warnings}")
 
     # 3. flash kernel vs plain at the production shapes (+ a kv_len case)
     cases = {name: kernel_case(name, shape, None, seed=i) for i, (name, shape) in enumerate(SHAPES.items())}
     kvl_case = kernel_case("vitg_global_kv_len", SHAPES["vitg_global"], [2911, S * 721], seed=9)
+    # a scale that is no power of two: the wrapper passes bf16(q * scale) and a multiplier of 1
+    scale_case = kernel_case("vitl_local_scale_0.1", SHAPES["vitl_local"], None, seed=8, scale=0.1)
     # the shapes the two train steps (B=1) give the forward kernel
     train_fwd_cases = {name: kernel_case(name, shape, None, seed=10 + i, iters=10)
                        for i, (name, shape) in enumerate(TRAIN_FWD_SHAPES.items())}
@@ -674,7 +767,9 @@ def main():
     bwd_cases = {name: bwd_case(name, shape, None, seed=20 + i, on_path=True)
                  for i, (name, shape) in enumerate(FT_SHAPES.items())}
     bwd_extra = [bwd_case("vitl_global_b2_kv_len", (2, 16, S * 721, S * 721), [2911, S * 721], seed=29, on_path=False),
-                 bwd_case("vitg_global", SHAPES["vitg_global"], None, seed=30, on_path=False, iters=5)]
+                 bwd_case("vitg_global", SHAPES["vitg_global"], None, seed=30, on_path=False, iters=5),
+                 bwd_case("vitl_local_b1_scale_0.1", FT_SHAPES["vitl_local_b1"], None, seed=31, on_path=False,
+                          scale=0.1)]
     bwd_case_of = {tuple(c["shape"]): c for c in bwd_cases.values()}
 
     # 4. the model of the main path
@@ -947,7 +1042,7 @@ def main():
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
     mix = {key: sum(case_of[shape][key] * n for shape, n in flash_by_shape.items()) / REQUESTS
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "exp_floor_ms")}
     by = "operations" if all(case_of[shape]["bound_by"] == "operations" for shape in flash_by_shape) else "bytes"
     fps_mix = {key: sum(fps_case_of[shape][key] * n for shape, n in fps_by_shape.items()) / REQUESTS
                for key in ("ms", "plain_ms", "bound_ms")}
@@ -956,10 +1051,12 @@ def main():
             dict(name="flash_attn_fwd", route="cuda", source="recondet3d_torch/csrc/flash_attn_fwd.cu",
                  replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=flash_total,
                  launches_da3_slice=sum(by_shape.values()),
-                 max_abs_err=max(c["max_abs_err"] for c in list(cases.values()) + [kvl_case]),
+                 max_abs_err=max(c["max_abs_err"] for c in list(cases.values()) + [kvl_case, scale_case]),
                  ms=mix["ms"], plain_ms=mix["plain_ms"], bound_ms=mix["bound_ms"], bound_by=by,
-                 library_ms=mix["library_ms"], per="one request's launch mix (B=2)",
-                 shapes=[dict(c, launches_per_forward=per_forward[n]) for n, c in cases.items()] + [kvl_case]),
+                 exp_floor_ms=mix["exp_floor_ms"], library_ms=mix["library_ms"], per="one request's launch mix (B=2)",
+                 design="wgmma + TMA + mbarriers, warp-specialised",
+                 shapes=[dict(c, launches_per_forward=per_forward[n]) for n, c in cases.items()]
+                 + [kvl_case, scale_case], train_shapes=list(train_fwd_cases.values())),
             dict(name="fps", route="cuda", source="recondet3d_torch/csrc/fps.cu",
                  replaces="recondet3d/ops/fps_pallas.py:54", status="ported+checked", launches=fps_total,
                  max_abs_err=max(c["max_abs_err"] for c in fps_cases),
@@ -975,7 +1072,7 @@ def main():
     per_step = {kind: {shape: n / TRAIN_STEPS for shape, n in ft_launches[kind].items()} for kind in ("dq", "dkv")}
     for kind, fn_name, line, what in (("dq", "flash_bwd_dq", 185, "dq"), ("dkv", "flash_bwd_dkv", 231, "dk and dv")):
         step_mix = {key: sum(bwd_case_of[shape][kind][key] * n for shape, n in per_step[kind].items())
-                    for key in ("ms", "bound_ms")}
+                    for key in ("ms", "bound_ms", "exp_floor_ms")}
         shared = {key: sum(bwd_case_of[shape][key] * n for shape, n in per_step[kind].items())
                   for key in ("plain_ms", "library_ms")}
         table["kernels"].append(dict(
@@ -984,11 +1081,13 @@ def main():
             launches=sum(ft_launches[kind].values()),
             max_abs_err=max(c["max_abs_err"] for c in list(bwd_cases.values()) + bwd_extra),
             ms=step_mix["ms"], plain_ms=shared["plain_ms"], bound_ms=step_mix["bound_ms"], bound_by="operations",
-            library_ms=shared["library_ms"], per="one fine-tuning step's launch mix (B=1)",
+            exp_floor_ms=step_mix["exp_floor_ms"], library_ms=shared["library_ms"],
+            per="one fine-tuning step's launch mix (B=1)",
+            design="mma.sync, cp.async" if kind == "dq" else "wgmma + TMA + mbarriers, warp-specialised",
             note=f"computes {what}; plain_ms is attention_bwd_plain (dq, dk and dv together) and library_ms the "
                  "backward of scaled_dot_product_attention (dq, dk and dv in one call): the same numbers stand in "
                  "both backward rows; max_abs_err is the largest over dq, dk, dv and all cases",
-            shapes=[dict(name=c["name"], shape=c["shape"], kv_len=c["kv_len"], on_path=c["on_path"],
+            shapes=[dict(name=c["name"], shape=c["shape"], kv_len=c["kv_len"], scale=c["scale"], on_path=c["on_path"],
                          launches_per_step=per_step[kind].get(tuple(c["shape"]), 0), **c[kind],
                          plain_ms=c["plain_ms"], library_ms=c["library_ms"], errors=c["errors"])
                     for c in list(bwd_cases.values()) + bwd_extra]))

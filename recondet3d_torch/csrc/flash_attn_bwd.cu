@@ -6,32 +6,53 @@
 //   dp = dO v^T, ds = p * (dp - delta), delta = rowsum(dO * O)  (fp32, given)
 // the two kernels compute
 //   dq = scale * (bf16(ds) k)                      one CTA per 64 query rows
-//   dv = bf16(p)^T dO,  dk = scale * (bf16(ds)^T q) one CTA per 64 key rows
-// with every product in bf16 on mma.sync.m16n8k16 and fp32 accumulators. P and
-// dS are recomputed tile by tile from lse and never reach device memory.
+//   dv = bf16(p)^T dO,  dk = scale * (bf16(ds)^T q) one CTA per 64 * CONSUMERS key rows (128)
+// with every product in bf16 and fp32 accumulators. P and dS are recomputed
+// tile by tile from lse and never reach device memory. No atomics: the dq
+// kernel owns its query rows, the dk/dv kernel its key rows, so results are
+// the same bits from run to run.
 //
-// Bound on an H100: 6*N*M*D (dq) and 8*N*M*D (dk, dv) operations over a few
-// (N+M)*D*2 bytes per head: hundreds of operations per byte at N = 721 / 4326,
-// so the tensor cores bound both. No atomics: the dq kernel owns its query rows
-// and loops over 64-key K/V tiles, the dk/dv kernel owns its key rows and loops
-// over 64-query Q/dO tiles, so results are the same from run to run. Tiles
-// stream through double-buffered shared memory with cp.async.
+// What bounds them on an H100: 6*N*M*D (dq) and 8*N*M*D (dk, dv) tensor-core
+// operations over a few (N+M)*D*2 bytes per head, hundreds of operations per
+// byte at N = 721 / 4326, and one ex2 per score on the MUFU (16 a clock per SM).
 //
-// Transposed operands without a transpose: the dk/dv kernel computes
-// S^T = k qs^T and dP^T = v dO^T (the warp's 16 keys as the A operand held in
-// registers, the Q and dO tiles as B), which leaves P^T and dS^T in the
-// accumulator layout that re-packs in registers into the A operand of
-// P^T dO and dS^T q; the tiles then feed as B through ldmatrix.trans.
-// In the dq kernel dS is the A operand and the K tile the transposed B.
+// dq kernel (first design, mma.sync.m16n8k16, building blocks in
+// flash_attn_common.cuh): 4 warps, a warp's 16 query rows of Qs and dO held as
+// A fragments in registers, 64-key K/V tiles double-buffered through shared
+// memory by cp.async; S = Qs K^T and dP = dO V^T, dS re-packed in registers as
+// the A operand of dS K with the K tile as transposed B through ldmatrix.trans.
 //
-// Ragged edges are masked here and the host pads nothing: a key column >= kv_len
-// (or >= M) gets p = 0 by a select, so exp(s - lse) of a padded column is never
-// used whatever lse is; query rows >= N are zero-filled, masked in the dk/dv
-// kernel and not stored by the dq kernel.
+// dk/dv kernel (Hopper design, building blocks in hopper_common.cuh):
+//   - one CTA = one producer warpgroup + CONSUMERS warpgroups of 64 keys; the
+//     producer gives up its registers (setmaxnreg); the CTA's K and V rows
+//     arrive once by TMA and stay in shared memory, 128-byte swizzled;
+//   - one producer warp streams 64-query tiles of Q and dO (and of bf16(q *
+//     scale) when the scale is no power of two) by TMA through a ring of STAGES
+//     stages, and their lse and delta with 4-byte cp.async copies that arrive
+//     on the stage's mbarrier (cp.async.mbarrier.arrive.noinc): those rows are
+//     not 16-byte aligned at N = 721, so TMA cannot carry them;
+//   - S^T = K Qs^T and dP^T = V dO^T on wgmma m64n64k16 with both operands in
+//     shared memory (K-major, no transpose); P^T and dS^T then sit in the
+//     accumulator layout that re-packs in registers into the A operand of
+//     dV += bf16(P^T) dO and dK += bf16(dS^T) Q, whose B operands are the dO and
+//     raw Q tiles read MN-major (transpose bit);
+//   - when the scale is a power of two the kernel applies it to S^T in fp32
+//     (`mul`), which equals bf16(q * scale) k^T exactly, so the raw Q tile
+//     serves both products.
+// Two consumer warpgroups (128 keys a CTA) and two stages measured fastest on
+// an H100: one warpgroup of 64 keys with two CTAs an SM leaves 216 registers a
+// consumer thread and spills, a third stage gains nothing, and
+// issuing tile j+1's S^T and dP^T behind tile j's dV and dK inside a
+// warpgroup ran slower than letting the two warpgroups interleave.
+// Tensor maps are 3-D (64, rows, B*H): Q/dO rows >= N read as zeros and are
+// masked with p = 0 by a select, as are keys >= kv_len (so exp(s - lse) of a
+// padded column never counts whatever lse is). Key tiles wholly past kv_len
+// write zeros and exit. dK takes its trailing scale in fp32.
 //
-// C interface for ctypes: each function returns cudaGetLastError() after its launch.
+// C interface for ctypes: each function returns a cudaError_t value after its launch.
 
 #include "flash_attn_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -110,123 +131,6 @@ __global__ void __launch_bounds__(NTHREADS)
   store_rows(dq + qo, acc, r0, r1, N, t, scale);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const int* __restrict__ kv_len, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int N, int M, float scale) {
-  __shared__ __align__(128) bf16 Qs[2][TILE * SROW];   // q as stored: the B operand of dS^T q
-  __shared__ __align__(128) bf16 dOs[2][TILE * SROW];
-  __shared__ __align__(128) bf16 Qsc[TILE * SROW];     // bf16(q * scale): the B operand of S^T
-  __shared__ __align__(16) float lse_s[2][TILE];
-  __shared__ __align__(16) float dl_s[2][TILE];
-
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qo = (size_t)bh * N * D;
-  const size_t ko = (size_t)bh * M * D;
-  const size_t so = (size_t)bh * N;
-  const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
-
-  if (k0 >= kv_lim) {
-    // no query attends to these keys: their gradients are zero
-    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    for (int c = threadIdx.x; c < TILE * (D / 8); c += NTHREADS) {
-      const int r = k0 + c / (D / 8), ch = c % (D / 8);
-      if (r < M) {
-        *reinterpret_cast<uint4*>(dk + ko + (size_t)r * D + ch * 8) = z;
-        *reinterpret_cast<uint4*>(dv + ko + (size_t)r * D + ch * 8) = z;
-      }
-    }
-    return;
-  }
-
-  const int n_blocks = (N + TILE - 1) / TILE;
-  // a Q/dO tile with its lse and delta: threads 0..63 fetch lse, 64..127 delta
-  auto load_q_tile = [&](int buf, int q0) {
-    load_tile(Qs[buf], q + qo, q0, N);
-    load_tile(dOs[buf], dout + qo, q0, N);
-    const int i = threadIdx.x & (TILE - 1);
-    const bool ok = q0 + i < N;
-    const float* src = (threadIdx.x < TILE ? lse : delta) + so + (ok ? q0 + i : 0);
-    float* dst = threadIdx.x < TILE ? &lse_s[buf][i] : &dl_s[buf][i];
-    cp_async_4(smem_u32(dst), src, ok ? 4 : 0);
-  };
-  load_q_tile(0, 0);
-  cp_async_commit();
-
-  // this warp's 16 keys: K and V as A fragments
-  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_frags(kf, k + ko, r0, r1, M, t, 1.f);
-  load_a_frags(vf, v + ko, r0, r1, M, t, 1.f);
-  const bool key_ok[2] = {r0 < kv_lim, r1 < kv_lim};
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int j = 0; j < n_blocks; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_blocks) {
-      load_q_tile(buf ^ 1, (j + 1) * TILE);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // the scale goes into q in fp32 and is rounded to bf16, as in the forward
-    for (int c = threadIdx.x; c < TILE * (D / 8); c += NTHREADS) {
-      const int off = (c / (D / 8)) * SROW + (c % (D / 8)) * 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(Qs[buf] + off);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-      uint32_t o[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        o[i] = pack_bf16(f.x * scale, f.y * scale);
-      }
-      *reinterpret_cast<uint4*>(Qsc + off) = make_uint4(o[0], o[1], o[2], o[3]);
-    }
-    __syncthreads();
-
-    float st[TILE / 8][4], dpt[TILE / 8][4];
-    zero(st);
-    zero(dpt);
-    mma_a_bt(st, kf, Qsc, lane);        // S^T = K Qs^T: 16 keys x 64 queries
-    mma_a_bt(dpt, vf, dOs[buf], lane);  // dP^T = V dO^T
-
-    const int q0 = j * TILE;
-    const bool edge = q0 + TILE > N;
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t + (e & 1);
-        const bool keep = key_ok[e >> 1] && (!edge || q0 + qc < N);
-        st[nt][e] = keep ? __expf(st[nt][e] - lse_s[buf][qc]) : 0.f;  // P^T
-      }
-    }
-    mma_p_b(dv_acc, st, dOs[buf], lane);  // dV += bf16(P^T) dO
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t + (e & 1);
-        st[nt][e] *= dpt[nt][e] - dl_s[buf][qc];  // dS^T
-      }
-    }
-    mma_p_b(dk_acc, st, Qs[buf], lane);  // dK += bf16(dS^T) Q
-    __syncthreads();                     // buffer `buf` and Qsc are rewritten at iteration j + 1
-  }
-  store_rows(dk + ko, dk_acc, r0, r1, M, t, scale);
-  store_rows(dv + ko, dv_acc, r0, r1, M, t, 1.f);
-}
-
 }  // namespace
 
 extern "C" int flash_attn_bwd_dq_bf16_d64(const void* q, const void* k, const void* v, const void* dout,
@@ -240,13 +144,222 @@ extern "C" int flash_attn_bwd_dq_bf16_d64(const void* q, const void* k, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int flash_attn_bwd_dkv_bf16_d64(const void* q, const void* k, const void* v, const void* dout,
-                                           const void* lse, const void* delta, const void* kv_len, void* dk,
-                                           void* dv, int B, int H, int N, int M, float scale, void* stream) {
-  const dim3 grid((M + TILE - 1) / TILE, B * H);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, M, scale);
+
+namespace dkv {
+
+using hopper::bf16;
+using hopper::desc_sw128;
+using hopper::DESC_K16_COLS;
+using hopper::DESC_K16_ROWS;
+using hopper::ex2;
+using hopper::fence_regs;
+using hopper::LOG2E;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::pack_a;
+using hopper::ROW_BYTES;
+using hopper::tma_load_rows;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_m64n64_rs_bt;
+using hopper::wgmma_m64n64_ss;
+using hopper::wgmma_wait;
+
+constexpr int CONSUMERS = 2;             // consumer warpgroups of 64 keys
+constexpr int STAGES = 2;                // Q/dO ring depth
+constexpr int BLOCK_K = 64 * CONSUMERS;  // key rows per CTA
+constexpr int BLOCK_Q = 64;              // queries per Q/dO tile
+constexpr int NTHREADS = 128 * (CONSUMERS + 1);
+// registers per thread after setmaxnreg, within the 64K of one CTA per SM
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr uint32_t TILE_BYTES = 64 * ROW_BYTES;
+
+struct alignas(1024) Smem {
+  bf16 k[CONSUMERS][64 * 64];
+  bf16 v[CONSUMERS][64 * 64];
+  bf16 q[STAGES][BLOCK_Q * 64];
+  bf16 dout[STAGES][BLOCK_Q * 64];
+  bf16 qs[STAGES][BLOCK_Q * 64];  // bf16(q * scale); loaded only when the scale is no power of two
+  float lse[STAGES][BLOCK_Q];
+  float delta[STAGES][BLOCK_Q];
+  uint64_t kv_full;
+  uint64_t full[STAGES], empty[STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + 1024;
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_qs,
+                         const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const int* __restrict__ kv_len, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int H, int N, int M, float mul, float scale, int separate_qs) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(hopper::align_1024(smem_raw));
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BLOCK_K;
+  const size_t ko = static_cast<size_t>(bh) * M * 64;
+  const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
+
+  if (k0 >= kv_lim) {
+    // no query attends to these keys: their gradients are zero
+    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+    for (int idx = threadIdx.x; idx < BLOCK_K * 8; idx += NTHREADS) {
+      const int r = k0 + idx / 8, ch = idx % 8;
+      if (r < M) {
+        *reinterpret_cast<uint4*>(dk + ko + static_cast<size_t>(r) * 64 + ch * 8) = z;
+        *reinterpret_cast<uint4*>(dv + ko + static_cast<size_t>(r) * 64 + ch * 8) = z;
+      }
+    }
+    return;
+  }
+
+  const int n_tiles = (N + BLOCK_Q - 1) / BLOCK_Q;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1 + 32);            // the TMA arrival + one cp.async arrival per producer lane
+      mbar_init(&sm.empty[s], 4 * CONSUMERS);    // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // producer: its first warp streams the query tiles, the other three leave
+    hopper::regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x / 32 == 4 * CONSUMERS) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        hopper::prefetch_map(&tm_q);
+        hopper::prefetch_map(&tm_do);
+        mbar_arrive_expect_tx(&sm.kv_full, 2 * CONSUMERS * TILE_BYTES);
+        for (int w = 0; w < CONSUMERS; ++w) {
+          tma_load_rows(sm.k[w], &tm_k, &sm.kv_full, k0 + 64 * w, bh);
+          tma_load_rows(sm.v[w], &tm_v, &sm.kv_full, k0 + 64 * w, bh);
+        }
+      }
+      const float* lse_bh = lse + static_cast<size_t>(bh) * N;
+      const float* delta_bh = delta + static_cast<size_t>(bh) * N;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES, q0 = j * BLOCK_Q;
+        mbar_wait(&sm.empty[s], ((j / STAGES) & 1) ^ 1);  // round 0 passes: the ring starts empty
+        for (int i = lane; i < BLOCK_Q; i += 32) {
+          const bool ok = q0 + i < N;
+          hopper::cp_async_4(&sm.lse[s][i], lse_bh + (ok ? q0 + i : 0), ok ? 4 : 0);
+          hopper::cp_async_4(&sm.delta[s][i], delta_bh + (ok ? q0 + i : 0), ok ? 4 : 0);
+        }
+        hopper::cp_async_arrive_noinc(&sm.full[s]);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[s], (separate_qs ? 3 : 2) * TILE_BYTES);
+          tma_load_rows(sm.q[s], &tm_q, &sm.full[s], q0, bh);
+          tma_load_rows(sm.dout[s], &tm_do, &sm.full[s], q0, bh);
+          if (separate_qs) tma_load_rows(sm.qs[s], &tm_qs, &sm.full[s], q0, bh);
+        }
+      }
+    }
+  } else {
+    hopper::regs_alloc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int g = lane / 4, c = lane % 4;
+    const int key0 = k0 + 64 * wg + 16 * warp + g;  // this thread's keys: key0 and key0 + 8
+    const bool key_ok[2] = {key0 < kv_lim, key0 + 8 < kv_lim};
+    const float k_log2 = mul * LOG2E;
+    const uint64_t k_desc = desc_sw128(sm.k[wg]), v_desc = desc_sw128(sm.v[wg]);
+
+    float st[32], dpt[32], dk_acc[32], dv_acc[32];
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(&sm.kv_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES, q0 = j * BLOCK_Q;
+      mbar_wait(&sm.full[s], (j / STAGES) & 1);
+      const uint64_t q_desc = desc_sw128(sm.q[s]);
+      const uint64_t qk_desc = separate_qs ? desc_sw128(sm.qs[s]) : q_desc;
+      const uint64_t do_desc = desc_sw128(sm.dout[s]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // S^T = K Qs^T: 64 keys x 64 queries
+        wgmma_m64n64_ss(st, k_desc + kk * DESC_K16_COLS, qk_desc + kk * DESC_K16_COLS, kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dP^T = V dO^T
+        wgmma_m64n64_ss(dpt, v_desc + kk * DESC_K16_COLS, do_desc + kk * DESC_K16_COLS, kk);
+      wgmma_commit();
+
+      const bool edge = q0 + BLOCK_Q > N;
+      wgmma_wait<1>();
+      fence_regs(st);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {  // P^T; this thread's query columns are 8i + 2c + {0, 1}
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[s][8 * i + 2 * c]);
+        const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+#pragma unroll
+        for (int e = 4 * i; e < 4 * i + 4; ++e) {
+          const bool keep = key_ok[(e / 2) % 2] && (!edge || q0 + 8 * i + 2 * c + (e % 2) < N);
+          st[e] = keep ? ex2(fmaf(st[e], k_log2, nl[e % 2])) : 0.f;
+        }
+      }
+      pack_a<4>(pa, st);
+      wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {  // dS^T
+        const float2 d2 = *reinterpret_cast<const float2*>(&sm.delta[s][8 * i + 2 * c]);
+        const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 4 * i; e < 4 * i + 4; ++e) st[e] *= dpt[e] - dl[e % 2];
+      }
+      pack_a<4>(da, st);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_rs_bt(dv_acc, pa[kk], do_desc + kk * DESC_K16_ROWS, 1);  // dV += P^T dO
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_rs_bt(dk_acc, da[kk], q_desc + kk * DESC_K16_ROWS, 1);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[s]);
+    }
+    hopper::store_acc_rows(dk + ko, dk_acc, key0, M, c, scale);
+    hopper::store_acc_rows(dv + ko, dv_acc, key0, M, c, 1.f);
+  }
+}
+
+}  // namespace dkv
+
+// q (and qs = bf16(q * scale) when it is a separate tensor), dout: (B*H, N, 64)
+// bf16; k, v, dk, dv: (B*H, M, 64) bf16; lse, delta: (B*H, N) fp32; kv_len (B,)
+// int32 or null; mul: the fp32 multiplier of qs k^T; scale: dk's trailing scale
+extern "C" int flash_attn_bwd_dkv_bf16_d64(const void* q, const void* qs, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta, const void* kv_len,
+                                           void* dk, void* dv, int B, int H, int N, int M, float mul, float scale,
+                                           void* stream) {
+  CUtensorMap tm_q, tm_qs, tm_k, tm_v, tm_do;
+  const int separate_qs = qs != q;
+  int err = hopper::make_row_map(&tm_q, q, N, B * H, dkv::BLOCK_Q);
+  if (!err && separate_qs) err = hopper::make_row_map(&tm_qs, qs, N, B * H, dkv::BLOCK_Q);
+  if (!separate_qs) tm_qs = tm_q;  // never read by the kernel
+  if (!err) err = hopper::make_row_map(&tm_k, k, M, B * H, 64);
+  if (!err) err = hopper::make_row_map(&tm_v, v, M, B * H, 64);
+  if (!err) err = hopper::make_row_map(&tm_do, dout, N, B * H, dkv::BLOCK_Q);
+  if (err) return err;
+  static std::atomic<uint32_t> smem_allowed{0};
+  err = hopper::allow_dynamic_smem(dkv::flash_bwd_dkv_kernel, dkv::SMEM_BYTES, smem_allowed);
+  if (err) return err;
+  const dim3 grid((M + dkv::BLOCK_K - 1) / dkv::BLOCK_K, B * H);
+  dkv::flash_bwd_dkv_kernel<<<grid, dkv::NTHREADS, dkv::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_qs, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, M, mul, scale,
+      separate_qs);
   return static_cast<int>(cudaGetLastError());
 }
+

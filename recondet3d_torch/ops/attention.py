@@ -3,8 +3,8 @@
 Forward. Replaces the Pallas TPU kernel ``_flash_kernel``
 (``recondet3d/ops/attention.py:54``, launched by
 ``_flash_attention_fwd_impl`` at ``:126``): online-softmax attention over
-(B, H, N, D) with QK^T and PV in bf16 and fp32 accumulation, the scale
-folded into q in fp32 and rounded to bf16, P rounded to bf16 before PV,
+(B, H, N, D) with QK^T and PV in bf16 and fp32 accumulation, the scores
+equal to bf16(q * scale) k^T in fp32, P rounded to bf16 before PV,
 emitting O and the per-row logsumexp that the backward pass reads.
 
 Backward. Replaces ``_flash_bwd_dq_kernel`` (``:185``) and
@@ -19,17 +19,30 @@ as the JAX package computes it outside its kernels.
 What bounds them on an H100: at the DA3 shapes (D = 64, N = 721 local and
 4,326 global) the forward does 4*N*M*D operations per head, the dq kernel
 6*N*M*D and the dk/dv kernel 8*N*M*D, over a few (N+M)*D*2 bytes: hundreds
-of operations per byte, so the tensor cores bound all three, not memory.
-The design (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``, shared
-blocks in ``csrc/flash_attn_common.cuh``) keeps the (N, M) scores out of
-device memory entirely: one CTA of 4 warps owns 64 rows (queries in the
-forward and dq kernels, keys in the dk/dv kernel) held in registers, streams
-64-row tiles of the other side through double-buffered shared memory with
-``cp.async`` and runs every product on ``mma.sync.m16n8k16`` (bf16 in, fp32
-accumulate). No atomics, so gradients are the same from run to run. The
-ragged N and M edges and ``kv_len`` are masked in the kernels; nothing is
-padded on the host. ``wgmma``/TMA/warp specialisation are left for a later
-change.
+of operations per byte, so the tensor cores bound all three, not memory;
+and at D = 64 one ex2 per score on the MUFU (16 a clock per SM) costs about
+as much as the products, so the softmax has to run under the products.
+None of them lets the (N, M) scores reach device memory, and none uses
+atomics, so gradients are the same bits from run to run. The ragged N and M
+edges and ``kv_len`` are masked in the kernels; nothing is padded on the host.
+
+The forward and dk/dv kernels (``csrc/flash_attn_fwd.cu``,
+``csrc/flash_attn_bwd.cu`` ``flash_bwd_dkv_kernel``, building blocks in
+``csrc/hopper_common.cuh``) are Hopper kernels: a producer warpgroup whose
+one thread issues TMA copies of 128-byte-swizzled tiles (3-D tensor maps,
+built on the host through the driver entry point) into an mbarrier ring in
+dynamic shared memory, and consumer warpgroups of 64 rows (queries in the
+forward, keys in dk/dv) that run every product on ``wgmma``; ``setmaxnreg``
+moves registers from the producer to the consumers. In the forward the
+consumers take turns on named barriers so that one's softmax runs under the
+other's products. The dq kernel is still the first design: 4 warps on
+``mma.sync.m16n8k16`` with ``cp.async`` double buffering (shared blocks in
+``csrc/flash_attn_common.cuh``).
+
+The scale: ``score_operand`` hands the kernels raw q and the scale as an
+fp32 multiplier of the scores when the scale is a power of two (every call
+of the DA3 trunks: D = 64 gives 0.125), which gives bf16(q * scale) k^T
+exactly; for any other scale it hands them bf16(q * scale) and 1.
 
 ``attention_plain`` (the port of ``attention_xla``, ``:37``, extended to
 return lse) and ``attention_bwd_plain`` (explicit formulae with the kernels'
@@ -41,12 +54,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "score_operand",
     "attention_plain",
     "attention_bwd_plain",
     "flash_attention_fwd",
@@ -79,6 +94,16 @@ def attention_plain(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, tor
     return out, lse
 
 
+def score_operand(q, scale: float) -> Tuple[torch.Tensor, float]:
+    """(q', mul) such that (q' k^T) * mul, in fp32, equals bf16(q * scale) k^T
+    (q's dtype for bf16): for a power-of-two scale raw q and the scale, exact
+    because scaling by a power of two commutes with every rounding; for any
+    other scale q * scale rounded to q's dtype, and 1."""
+    if scale > 0 and math.frexp(scale)[0] == 0.5:
+        return q, float(scale)
+    return (q.float() * scale).to(q.dtype), 1.0
+
+
 def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None):
     """Gradients (dq, dk, dv) of ``attention_plain``'s ``out`` from explicit
     formulae, with the roundings of the kernels (no-ops on fp32 inputs): the
@@ -108,7 +133,8 @@ def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None):
 _ARGTYPES = {
     "flash_attn_fwd_bf16_d64": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     "flash_attn_bwd_dq_bf16_d64": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    "flash_attn_bwd_dkv_bf16_d64": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attn_bwd_dkv_bf16_d64": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_void_p],
 }
 
 
@@ -158,13 +184,13 @@ def _check_kernel_inputs(what: str, q, k, v, kv_len, scale, like_q=(), row_stats
     return B, H, N, M, kv_len, D ** -0.5 if scale is None else float(scale)
 
 
-def _launch(wrapper, name: str, tensors, shape, scale: float, device):
+def _launch(wrapper, name: str, tensors, shape, floats, device):
     """Launch kernel ``name`` on PyTorch's current stream with ``tensors``
-    (None = a null pointer) and (B, H, N, M); raises if the launch is
-    refused and adds one to ``wrapper``'s counts."""
+    (None = a null pointer), (B, H, N, M) and the fp32 arguments ``floats``;
+    raises if the launch is refused and adds one to ``wrapper``'s counts."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = _kernel_fn(name)(*(None if t is None else t.data_ptr() for t in tensors), *shape, scale, stream)
+        err = _kernel_fn(name)(*(None if t is None else t.data_ptr() for t in tensors), *shape, *floats, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1
@@ -184,9 +210,10 @@ def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
     B, H, N, M, kv_len, scale = _check_kernel_inputs("flash_attention_fwd", q, k, v, kv_len, scale)
+    qk, mul = score_operand(q, scale)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    _launch(flash_attention_fwd, "flash_attn_fwd_bf16_d64", (q, k, v, kv_len, out, lse), (B, H, N, M), scale,
+    _launch(flash_attention_fwd, "flash_attn_fwd_bf16_d64", (qk, k, v, kv_len, out, lse), (B, H, N, M), (mul,),
             q.device)
     return out, lse
 
@@ -204,18 +231,20 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, scale=None) -
     B, H, N, M, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", q, k, v, dout, lse, delta, kv_len, scale)
     dq = torch.empty_like(q)
     _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16_d64", (q, k, v, dout, lse, delta, kv_len, dq),
-            (B, H, N, M), scale, q.device)
+            (B, H, N, M), (scale,), q.device)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=None, scale=None):
-    """(dk, dv) (B, H, M, D) bf16 from the dk/dv kernel: one CTA per 64 key
-    rows, looping over the queries; keys at index >= kv_len[b] get zeros.
-    CUDA tensors only. Counts its launches like ``flash_attention_fwd``."""
+    """(dk, dv) (B, H, M, D) bf16 from the dk/dv kernel: one CTA per 128 key
+    rows (two warpgroups of 64), looping over the queries; keys at index >=
+    kv_len[b] get zeros. CUDA tensors only. Counts its launches like
+    ``flash_attention_fwd``."""
     B, H, N, M, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", q, k, v, dout, lse, delta, kv_len, scale)
+    qk, mul = score_operand(q, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(flash_attention_bwd_dkv, "flash_attn_bwd_dkv_bf16_d64", (q, k, v, dout, lse, delta, kv_len, dk, dv),
-            (B, H, N, M), scale, q.device)
+    _launch(flash_attention_bwd_dkv, "flash_attn_bwd_dkv_bf16_d64", (q, qk, k, v, dout, lse, delta, kv_len, dk, dv),
+            (B, H, N, M), (mul, scale), q.device)
     return dk, dv
 
 

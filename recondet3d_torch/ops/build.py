@@ -5,8 +5,9 @@ shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded through ``ctypes``. Libraries go to
 ``build/torch_kernels/<hash>/`` beside the package (listed in
 ``.gitignore``); the hash covers every source and the flags, so an edited
-source builds anew and an unchanged one is reused. Nothing here runs at
-import time.
+source builds anew and an unchanged one is reused. The compiler's report
+(``-Xptxas -v``: registers, spills, shared memory, warnings) is kept beside
+each library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ _FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# per source: {"seconds": seconds from its nvcc's start to its end, read in turn (0.0 if cached), "ptxas": compiler report}
+# per source: {"seconds": seconds from its nvcc's start to its end, read in turn (0.0 if cached), "ptxas": compiler
+# report (of the build that made the library, if cached)}
 BUILD_LOG: Dict[str, dict] = {}
 
 
@@ -63,8 +65,10 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
     sources = sorted(CSRC.glob("*.cu"))
     running = {}
     for src in sources:
-        if (out / f"lib{src.stem}.so").exists():
-            BUILD_LOG[src.stem] = {"seconds": 0.0, "ptxas": "cached"}
+        lib = out / f"lib{src.stem}.so"
+        if lib.exists():
+            log = lib.with_suffix(".ptxas.txt")
+            BUILD_LOG[src.stem] = {"seconds": 0.0, "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = out / f"lib{src.stem}.{os.getpid()}.tmp.so"
         proc = subprocess.Popen([_nvcc(), *_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
@@ -77,6 +81,7 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {stem}.cu (rc {proc.returncode}):\n{log}")
         else:
+            (out / f"lib{stem}.ptxas.txt").write_text(log)
             os.replace(tmp, out / f"lib{stem}.so")
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -1,6 +1,7 @@
 """Port attention vs the JAX package: the plain flash forward (out and lse)
 against the Pallas kernel in interpret mode and against ``attention_xla``;
-and, on a GPU, the hand-written CUDA kernel against the plain version.
+the scale helper the kernels' wrappers use; and, on a GPU, the hand-written
+CUDA kernel against the plain version.
 
 JAX is imported inside fixtures so that the CUDA test also runs on a
 machine that has no JAX (``python -m pytest --noconftest -m cuda``)."""
@@ -10,11 +11,13 @@ import pytest
 import torch
 
 from recondet3d_torch.ops.attention import (
+    attention_bwd_plain,
     attention_plain,
     flash_attention,
     flash_attention_fwd,
     multi_head_attention,
     reset_launch_counts,
+    score_operand,
 )
 
 # kernel vs plain (fp32 math on the same bf16 values): max |out error|, its
@@ -93,27 +96,133 @@ def test_cpu_calls_launch_no_kernel():
     assert flash_attention_fwd.launches == 0 and flash_attention_fwd.launches_by_shape == {}
 
 
+def _bf16_qkv(seed=21):
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(2, 2, 33, 40, seed=seed))
+    return q, k, v
+
+
+def test_score_operand_for_a_power_of_two_scale_is_raw_q_and_the_scale():
+    q, k, _ = _bf16_qkv()
+    qk, mul = score_operand(q, 0.125)
+    assert qk is q and mul == 0.125 and isinstance(mul, float)
+    # the scores of raw q times the multiplier are those of bf16(q * 0.125), bit for bit in fp32
+    rounded = (q.float() * 0.125).to(torch.bfloat16).float()
+    got = torch.einsum("bhnd,bhmd->bhnm", qk.float(), k.float()) * mul
+    assert torch.equal(got, torch.einsum("bhnd,bhmd->bhnm", rounded, k.float()))
+
+
+def test_score_operand_for_another_scale_is_rounded_q_and_one():
+    q, _, _ = _bf16_qkv()
+    qk, mul = score_operand(q, 0.1)
+    assert mul == 1.0 and qk.dtype == torch.bfloat16
+    assert torch.equal(qk, (q.float() * 0.1).to(torch.bfloat16))
+    for bad in (0.3, 1 / 3, -0.125):
+        assert score_operand(q, bad)[1] == 1.0
+
+
+@pytest.mark.parametrize("scale", [0.125, 0.1])
+def test_plain_versions_fed_the_score_operand_equal_the_default_path(scale):
+    """The helper's (q', mul) in place of (q, scale) changes neither plain
+    version: exactly for a power of two; for 0.1 the forward's reference
+    (which keeps q * scale in fp32) moves by the one bf16 rounding of q * 0.1
+    that the kernels make, and the backward already makes it."""
+    q, k, v = _bf16_qkv()
+    qk, mul = score_operand(q, scale)
+    out, lse = attention_plain(q.float(), k.float(), v.float(), scale=scale)
+    out_h, lse_h = attention_plain(qk.float(), k.float(), v.float(), scale=mul)
+    if scale == 0.125:
+        assert torch.equal(out, out_h) and torch.equal(lse, lse_h)
+    else:  # scores of size ~1 moved by ~2^-9 relative
+        torch.testing.assert_close(out_h, out, atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(lse_h, lse, atol=1e-2, rtol=0)
+    # the backward's explicit formulae with qs = bf16(q * scale), as before the helper existed
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=q.shape).astype(np.float32)).to(torch.bfloat16)
+    out_b, lse_b = attention_plain(q, k, v, scale=scale)
+    qs = (q.float() * scale).to(torch.bfloat16).float()
+    p = torch.exp(torch.einsum("bhnd,bhmd->bhnm", qs, k.float()) - lse_b[..., None])
+    dof = g.float()
+    delta = (dof * out_b.float()).sum(-1)
+    ds = (p * (torch.einsum("bhnd,bhmd->bhnm", dof, v.float()) - delta[..., None])).to(torch.bfloat16).float()
+    ref = ((torch.einsum("bhnm,bhmd->bhnd", ds, k.float()) * scale).to(torch.bfloat16),
+           (torch.einsum("bhnm,bhnd->bhmd", ds, q.float()) * scale).to(torch.bfloat16),
+           torch.einsum("bhnm,bhnd->bhmd", p.to(torch.bfloat16).float(), dof).to(torch.bfloat16))
+    for name, a, r in zip(("dq", "dk", "dv"), attention_bwd_plain(q, k, v, out_b, lse_b, g, scale=scale), ref):
+        assert torch.equal(a, r), name
+
+
+LOUD = 100.0  # the factor of a "loud" head's q, k and v
+
+
+def _cuda_inputs(B, H, N, M, inputs, seed):
+    """bf16 (q, k, v) on the card and the (B, H) mask of loud heads. inputs:
+    'normal'; 'loud': every odd head of the flattened B*H (the next head of
+    an even one) has q, k, v 100x larger, so a tile read across heads would
+    show; 'neg_lse': logits near -150, lse < -100."""
+    if inputs == "neg_lse":
+        from test_torch_attention_bwd import _very_negative_lse
+
+        q, k, v, _ = _very_negative_lse(B, H, N, M, seed)
+    else:
+        q, k, v = _qkv(B, H, N, M, seed=seed)
+    loud = torch.zeros(B * H, dtype=torch.bool)
+    if inputs == "loud":
+        loud[1::2] = True
+        loud = loud.reshape(B, H)
+        for a in (q, k, v):
+            a[loud.numpy()] *= LOUD
+    return tuple(torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)) + (loud.reshape(B, H).cuda(),)
+
+
+# (B, H, N, M, kv_len, scale, inputs): N and M across the query blocks (64 rows a
+# consumer warpgroup) and key tiles (128) of the kernel, kv_len off every tile
+# multiple, B*H > 1 with loud next heads, a scale that is no power of two, lse < -100
+_CUDA_FWD_CASES = [
+    (2, 3, 37, 37, None, None, "normal"),
+    (2, 4, 150, 150, [50, 150], None, "normal"),
+    (3, 2, 721, 721, None, None, "normal"),
+    (2, 2, 200, 333, [111, 333], None, "normal"),
+    (1, 2, 4326, 4326, None, None, "normal"),
+    *[(1, 2, n, n, None, None, "loud") for n in (1, 17, 63, 64, 65, 127, 128, 129, 192, 721)],
+    (2, 3, 65, 129, [1, 129], None, "loud"),
+    (2, 2, 129, 721, [127, 257], None, "loud"),
+    (3, 2, 192, 721, [63, 65, 600], None, "normal"),
+    (2, 2, 721, 721, [255, 721], 0.1, "loud"),
+    (2, 2, 17, 200, None, 0.1, "normal"),
+    (2, 2, 100, 150, [77, 150], None, "neg_lse"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "B,H,N,M,use_kv_len",
-    [(2, 3, 37, 37, False), (2, 4, 150, 150, True), (3, 2, 721, 721, False),
-     (2, 2, 200, 333, True), (1, 2, 4326, 4326, False)],
-)
-def test_cuda_kernel_matches_plain(B, H, N, M, use_kv_len):
+@pytest.mark.parametrize("B,H,N,M,kv_len,scale,inputs", _CUDA_FWD_CASES)
+def test_cuda_kernel_matches_plain(B, H, N, M, kv_len, scale, inputs):
+    """Against the plain version on the scores of the TPU kernel, bf16(q *
+    scale) k^T, formed here: quiet heads under the gates of chip_smoke.py; a loud
+    head's output (the v row of its one dominant key) under the relative L2
+    gate and its lse (up to ~3e4) to 1e-6 of its largest value."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(B, H, N, M, seed=N + M))
-    kv_len = None if not use_kv_len else torch.tensor([max(1, M // 3), M][:B] + [M] * (B - 2), dtype=torch.int32).cuda()
+    q, k, v, loud = _cuda_inputs(B, H, N, M, inputs, seed=N + M)
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32).cuda()
     reset_launch_counts()
-    out, lse = flash_attention_fwd(q, k, v, kv_len)
+    out, lse = flash_attention_fwd(q, k, v, kvl, scale)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == 1
     assert flash_attention_fwd.launches_by_shape == {(B, H, N, M): 1}
-    ref_out, ref_lse = attention_plain(q.float(), k.float(), v.float(), kv_len)
+    qs = (q.float() * (64 ** -0.5 if scale is None else scale)).to(q.dtype)
+    ref_out, ref_lse = attention_plain(qs.float(), k.float(), v.float(), kvl, 1.0)
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    err = out.float() - ref_out
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    if inputs == "neg_lse":
+        assert lse.max().item() < -100
+    quiet = ~loud
+    err = out.float()[quiet] - ref_out[quiet]
     assert err.abs().max().item() <= OUT_TOL
-    assert (torch.linalg.norm(err) / torch.linalg.norm(ref_out)).item() <= OUT_REL_TOL
-    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+    assert (torch.linalg.norm(err) / torch.linalg.norm(ref_out[quiet])).item() <= OUT_REL_TOL
+    assert (lse[quiet] - ref_lse[quiet]).abs().max().item() <= LSE_TOL
+    if loud.any():
+        err = out.float()[loud] - ref_out[loud]
+        assert (torch.linalg.norm(err) / torch.linalg.norm(ref_out[loud])).item() <= OUT_REL_TOL
+        # scores of +-3e4 are resolved to ~2e-3 in fp32: lse to 1e-6 of the head's largest
+        assert (lse[loud] - ref_lse[loud]).abs().max().item() <= 1e-6 * ref_lse[loud].abs().max().item()
     with pytest.raises(ValueError):
         flash_attention_fwd(q.float(), k.float(), v.float())

@@ -186,32 +186,65 @@ def _rel_abs(got, ref):
     return (torch.linalg.norm(err) / torch.linalg.norm(ref.float())).item(), err.abs().max().item()
 
 
+# (B, H, N, M, kv_len, scale, loud): N and M across the tiles of the kernels (64-query
+# tiles and 64-key warpgroups of dk/dv, 64-row dq blocks), kv_len off every tile
+# multiple, a scale that is no power of two; loud: every odd head of the flattened
+# B*H has q, k, v 100x larger, so a tile read across heads would show
+_CUDA_BWD_CASES = [
+    (2, 3, 37, 37, None, None, False),
+    (2, 4, 150, 150, [50, 150], None, False),
+    (3, 2, 721, 721, None, None, False),
+    (2, 2, 200, 333, [111, 333], None, False),
+    (2, 2, 333, 200, [66, 200], None, False),
+    (1, 2, 4326, 4326, None, None, False),
+    (2, 2, 64, 128, None, None, False),
+    *[(1, 2, n, n, None, None, True) for n in (1, 17, 63, 64, 65, 127, 128, 129, 192, 721)],
+    (2, 3, 65, 129, [1, 129], None, True),
+    (2, 2, 129, 721, [127, 257], None, True),
+    (3, 2, 192, 721, [63, 65, 600], None, False),
+    (2, 2, 721, 721, [255, 721], 0.1, True),
+    (2, 2, 17, 200, None, 0.1, False),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "B,H,N,M,use_kv_len",
-    [(2, 3, 37, 37, False), (2, 4, 150, 150, True), (3, 2, 721, 721, False), (2, 2, 200, 333, True),
-     (2, 2, 333, 200, True), (1, 2, 4326, 4326, False), (2, 2, 64, 128, False)],
-)
-def test_cuda_backward_kernels_match_plain(B, H, N, M, use_kv_len):
+@pytest.mark.parametrize("B,H,N,M,kv_len,scale,loud", _CUDA_BWD_CASES)
+def test_cuda_backward_kernels_match_plain(B, H, N, M, kv_len, scale, loud):
+    """Quiet heads under the gates of chip_smoke.py. A loud head's softmax is
+    one-hot, so its dq and dk are rounding noise (dP - delta cancels) and
+    only its dv (= dO of the dominant query) is gated, by relative L2. With a
+    single key (M = 1) p = 1 and dq, dk are such noise everywhere: only the
+    absolute gate holds them."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    q, k, v, g = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _inputs(B, H, N, M, seed=N + M))
-    kv_len = None if not use_kv_len else torch.tensor([max(1, M // 3), M][:B] + [M] * (B - 2), dtype=torch.int32).cuda()
-    out, lse = flash_attention_fwd(q, k, v, kv_len)
+    q, k, v, g = _inputs(B, H, N, M, seed=N + M)
+    heads = np.zeros((B, H), bool)
+    if loud:
+        heads.reshape(-1)[1::2] = True
+        for a in (q, k, v):
+            a[heads] *= 100.0
+    q, k, v, g = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v, g))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32).cuda()
+    out, lse = flash_attention_fwd(q, k, v, kvl, scale)
     reset_launch_counts()
-    got = flash_attention_bwd(q, k, v, out, lse, g, kv_len)
+    got = flash_attention_bwd(q, k, v, out, lse, g, kvl, scale)
     torch.cuda.synchronize()
     assert flash_attention_bwd_dq.launches == 1 and flash_attention_bwd_dkv.launches == 1
     assert flash_attention_bwd_dq.launches_by_shape == {(B, H, N, M): 1}
     assert flash_attention_bwd_dkv.launches_by_shape == {(B, H, N, M): 1}
-    ref = attention_bwd_plain(q, k, v, out, lse, g, kv_len)
+    ref = attention_bwd_plain(q, k, v, out, lse, g, kvl, scale)
+    quiet, noisy = torch.from_numpy(~heads).cuda(), torch.from_numpy(heads).cuda()
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):
-        assert a.dtype == torch.bfloat16 and a.shape == r.shape
-        rel, mx = _rel_abs(a, r)
-        assert rel <= REL_TOL and mx <= ABS_TOL, (name, rel, mx)
-    if use_kv_len:
-        assert not got[1][0, :, int(kv_len[0]):].any() and not got[2][0, :, int(kv_len[0]):].any()
-    again = flash_attention_bwd(q, k, v, out, lse, g, kv_len)
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape and torch.isfinite(a).all(), name
+        rel, mx = _rel_abs(a[quiet], r[quiet])
+        assert (rel <= REL_TOL or (M == 1 and name != "dv")) and mx <= ABS_TOL, (name, rel, mx)
+        if name == "dv" and loud:
+            rel, _ = _rel_abs(a[noisy], r[noisy])
+            assert rel <= REL_TOL, (name, "loud heads", rel)
+    if kv_len is not None:
+        for b, n in enumerate(kv_len):
+            assert not got[1][b, :, n:].any() and not got[2][b, :, n:].any()
+    again = flash_attention_bwd(q, k, v, out, lse, g, kvl, scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: the same bits every run
     with pytest.raises(ValueError):
         flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, g.float())
