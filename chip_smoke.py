@@ -10,8 +10,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
             (one nvcc per source, started together); per kernel the ptxas
             registers, spills and shared memory, and the Hopper kernels'
             wgmma / TMA instructions counted in the SASS (``cuobjdump``). Fails on a spill or an ignored
-            ``setmaxnreg`` in the forward or dk/dv kernel, or if either has
-            no HGMMA or no TMA load.
+            ``setmaxnreg`` in the forward, dq or dk/dv kernel, or if one has
+            no HGMMA or no TMA load; launches the FPS kernel once on a small
+            cloud and fails unless it ran with its cluster dimension (16).
 3. kernel   the flash-attention kernel vs its plain PyTorch version (fp32
             math on the same bf16 values) at the DA3 nested-giant-large
             shapes, plus one case at a scale that is no power of two, with
@@ -27,11 +28,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
             launches counted per shape.
 6. in-situ  one B=1 forward with the flash kernel and one with the plain
             attention; the last ViT-g feature map must agree.
+6b. gt-pose the nested-giant-large net of phase 4 with GT poses (random w2c
+            extrinsics and pinhole intrinsics from a seed), B=2 scenes x 6
+            views x 900x1600: ``CameraEnc`` runs its four fp32 trunk blocks
+            (16 heads of 96) through the fp32 attention kernel, launches
+            counted per shape; once more with the camera encoder's attention
+            switched to the plain version: camera tokens and depth must
+            agree. Before it, the fp32 kernel against its plain version at
+            the camera encoders' shapes of da3-giant (D = 96) and da3-large
+            (D = 64), timed on the device (``torch.profiler``) and on the
+            host beside the plain version and SDPA on the same fp32 inputs,
+            and one da3-large ``CameraEnc`` (kernel vs plain).
 7. fps      the furthest-point-sampling kernel vs its plain PyTorch
             version at the sizes the point path gives it, on the buffers
             that path produces for a rendered street scene; the index
             sequences must be identical. Times of the kernel, the plain
-            version, the grid-wide exchange alone, and the bound.
+            version, the bound (bytes or fp32 operations), and the exchange
+            floor: this design's exchange alone (one cluster, or two levels
+            for the clusters a case uses) times K - 1.
 8. resdet3d the whole main path: ``ResDet3D.simple_test`` on B=2 scenes x 6
             views x 900x1600 images, the point path driven by depth maps
             rendered from ``assets/bench_sample/reference_points.npz``
@@ -73,6 +87,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             parameters bit-identical afterwards.
 15. the kernel table as one JSON line; then the card line, then the result.
 
+``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
+``scratch_tree/``) adds one phase after phase 7: the FPS kernel on this run's
+FPS cases and the dq kernel at the fine-tuning shapes, timed by
+``recondet3d_torch/tools/kernel_times.py`` in four processes, the earlier
+tree's and this tree's in turns (parent, change, change, parent).
+
 Needs CUDA; exits non-zero without it (or without the rest of the repo).
 """
 
@@ -85,6 +105,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -95,12 +116,14 @@ import torch.nn.functional as F
 from recondet3d_torch.data.anchor_scene import anchor_depth, rig_cam2lidar
 from recondet3d_torch.data.input_processor import compute_process_shape, process_tensor_batch
 from recondet3d_torch.data.pipelines.point_pipeline import ball_query_downsample, voxel_pre_reduce
-from recondet3d_torch.models.da3.layers import set_attn_impl
+from recondet3d_torch.models.da3 import CameraEnc
+from recondet3d_torch.models.da3.layers import init_parameters_, set_attn_impl
 from recondet3d_torch.models.detect import build_resdet3d
 from recondet3d_torch.ops import fps as fps_ops
 from recondet3d_torch.models.detect import ReconstructionBackbone, ResDet3D
 from recondet3d_torch.ops.attention import (
     attention_bwd_plain,
+    attention_fwd_f32,
     attention_plain,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -125,6 +148,13 @@ SMS, EX2_PER_CLOCK_PER_SM = 132, 16  # H100 SXM: SMs, MUFU ex2 results per clock
 # spread thin over the output (a dropped ragged K/V tile moves it ~0.1).
 OUT_TOL, OUT_REL_TOL, LSE_TOL = 5e-3, 1e-2, 1e-3
 FEAT_REL_TOL = 5e-2  # relative L2 of the last ViT-g feature map, kernel vs plain attention
+# fp32 attention kernel vs fp32 attention_plain: relative L2 of out (readings ~7e-8 on an H100) and max |lse error|
+F32_REL_TOL, F32_LSE_TOL = 1e-5, 1e-5
+# GT-pose path, camera encoder's attention on the kernel vs on the plain version, everything else the same:
+# the camera tokens (fp32 end to end) to F32_REL_TOL; the depth, after 40 bf16 ViT-g blocks that take the tokens,
+# to the in-situ feature gate (one bf16 rounding flipped by a 1e-7 difference is ~4e-3 of a value)
+POSE_DEPTH_REL_TOL = FEAT_REL_TOL
+CAM_BLOCKS = 4  # CameraEnc trunk depth: fp32 launches per GT-pose forward
 
 PRESET = "da3nested-giant-large"
 B, S, IMG_H, IMG_W = 2, 6, 900, 1600
@@ -135,6 +165,8 @@ SHAPES = {
     "vitg_global": (B, 24, S * 721, S * 721),
     "vitl_local": (B * S, 16, 721, 721),
 }
+# (B, H, S, D) of the camera encoder's trunk attention: 16 heads of dim_out / 16, one token a view
+CAM_SHAPES = {"cam_enc_giant": (B, 16, S, 96), "cam_enc_large": (B, 16, S, 64)}
 # launches a forward must make at each: ViT-g 40 blocks, global from block 13 on
 # every odd block -> 26 local + 14 global; ViT-L 24 local
 EXPECTED_PER_FORWARD = {"vitg_local": 26, "vitg_global": 14, "vitl_local": 24}
@@ -330,25 +362,26 @@ def bwd_case(name, shape, kv_len, seed, on_path, iters=10, scale=None):
     return res
 
 
-def fps_bound_ms(n_rows, n_valid, k, exchange_us):
-    """Least time for one FPS call on these inputs, the largest of: the bytes
-    (points and mask read once, indices written once) over the memory rate;
-    k * n_valid distance updates (3 subtractions, 3 products, 2 sums, 1
-    minimum = 9 fp32 operations on a valid point; an invalid one needs none)
-    over the fp32 rate; and k - 1 dependent selections, each at least one
-    grid-wide exchange, whose latency was measured in this run."""
+def fps_bound_ms(n_rows, n_valid, k):
+    """Least time for one FPS call on these inputs: the larger of the bytes
+    (points and mask read once, indices written once) over the memory rate
+    and the k * n_valid distance updates (3 subtractions, 3 products, 2
+    sums, 1 minimum = 9 fp32 operations on a valid point; an invalid one
+    needs none) over the fp32 rate. Returns (ms, "bytes" or "operations")."""
     t_bytes = 1e3 * (n_rows * 13 + k * 4) / PEAK_BYTES
     t_ops = 1e3 * 9.0 * k * n_valid / PEAK_FP32_FLOPS
-    t_seq = 1e-3 * exchange_us * (k - 1)
-    return max(t_bytes, t_ops, t_seq), dict(bytes_ms=t_bytes, operations_ms=t_ops, exchanges_ms=t_seq)
+    return max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def fps_case(name, pts, valid, k, presorted, exchange_us, on_main_path, iters=3):
     """Kernel vs plain version on one buffer: the index sequences must be
-    identical (FPS is chaotic: one different pick changes all later ones)."""
+    identical (FPS is chaotic: one different pick changes all later ones).
+    ``exchange_us``: {clusters: µs of one step of this design's exchange}."""
     n = pts.shape[0]
     n_valid = int(valid.sum())
     got = furthest_point_sample(pts, k, valid, presorted=presorted)
+    kernel_args = fps_ops.furthest_point_sample_cuda.last_args
+    ctrl = fps_ops.furthest_point_sample_cuda.last_ctrl.tolist()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = furthest_point_sample(pts, k, valid, impl="plain", presorted=presorted)
@@ -358,18 +391,184 @@ def fps_case(name, pts, valid, k, presorted, exchange_us, on_main_path, iters=3)
     first_bad = int((got != ref).nonzero()[0]) if mismatches else None
     in_range = bool(((got >= 0) & (got < n)).all())
     picks_valid = bool(valid[got[:min(k, n_valid)]].all()) if n_valid else True
-    ok = mismatches == 0 and in_range and picks_valid
+    ok = mismatches == 0 and in_range and picks_valid and ctrl[2] == fps_ops.CLUSTER
     k_ms = time_ms(lambda: furthest_point_sample(pts, k, valid, presorted=presorted), iters, warmup=1)
-    b_ms, parts = fps_bound_ms(n, n_valid, k, exchange_us)
+    b_ms, b_by = fps_bound_ms(n, n_valid, k)
+    clusters = ctrl[3]
     res = dict(name=name, N=n, n_valid=n_valid, K=k, presorted=presorted is not None, on_main_path=on_main_path,
-               mismatches=mismatches, first_mismatch=first_bad, max_abs_err=float(mismatches), tol=0,
-               ms=k_ms, us_per_selection=1e3 * k_ms / k, plain_ms=p_ms, library_ms=None,
-               bound_ms=b_ms, bound_by="operations", bound_parts=parts, ok=ok)
+               plan=fps_ops.furthest_point_sample_cuda.last_plan._asdict(), cluster_size=ctrl[2],
+               clusters_used=clusters, mismatches=mismatches, first_mismatch=first_bad, max_abs_err=float(mismatches),
+               tol=0, ms=k_ms, us_per_selection=1e3 * k_ms / k, plain_ms=p_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by, exchange_us=exchange_us[clusters],
+               exchange_floor_ms=1e-3 * exchange_us[clusters] * (k - 1), ok=ok)
     emit("fps_kernel", **res)
     if not ok:
         fail(f"fps kernel disagrees with the plain version at {name}: {mismatches} of {k} indices differ "
-             f"(first at {first_bad}); in range {in_range}; picks valid {picks_valid}")
+             f"(first at {first_bad}); in range {in_range}; picks valid {picks_valid}; cluster size {ctrl[2]}")
+    res["kernel_args"] = kernel_args
     return res
+
+
+def f32_bound_ms(shape):
+    """Least time for one fp32 attention call over (B, H, S, D): the larger
+    of 4*S*S*D fp32 operations a head over the fp32 rate and q, k, v and out
+    (fp32) and lse read or written once over the memory rate."""
+    Bq, H, N, D = shape
+    t_ops = 4.0 * Bq * H * N * N * D / PEAK_FP32_FLOPS
+    t_bytes = (4 * Bq * H * N * D * 4 + Bq * H * N * 4) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_ms_per_call(fn, calls):
+    """Device time of one call of ``fn``: the summed durations of what it
+    runs on the card, read from ``torch.profiler`` over ``calls`` calls, so
+    the host's time between launches does not count."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us > 0:
+        fail("torch.profiler recorded no device time")
+    return us / 1e3 / calls
+
+
+def f32_case(name, shape, seed, iters=100):
+    """The fp32 attention kernel against ``attention_plain`` (fp32) on one set
+    of fp32 inputs. At these shapes a call is launch-bound: ``ms``,
+    ``plain_ms`` and ``library_ms`` (SDPA on the same fp32 inputs) are device
+    time from the profiler, the ``host_*`` keys the time a call takes in a
+    loop of ``iters`` calls."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3))
+    out, lse = attention_fwd_f32(q, k, v)
+    ref_out, ref_lse = attention_plain(q, k, v)
+    rel, err = rel_l2(out, ref_out), (out - ref_out).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok = rel <= F32_REL_TOL and err_lse <= F32_LSE_TOL and bool(torch.isfinite(out).all())
+    b_ms, b_by = f32_bound_ms(shape)
+    calls = {"": lambda: attention_fwd_f32(q, k, v), "plain_": lambda: attention_plain(q, k, v),
+             "library_": lambda: F.scaled_dot_product_attention(q, k, v)}
+    times = {}
+    for key, fn in calls.items():
+        times[f"{key}ms"] = device_ms_per_call(fn, iters)
+        times[f"{key}host_ms"] = time_ms(fn, iters)
+    res = dict(name=name, shape=list(shape), max_abs_err=err, rel_l2_err=rel, max_abs_err_lse=err_lse,
+               library_rel_l2=rel_l2(F.scaled_dot_product_attention(q, k, v), ref_out),
+               tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL), **times, bound_ms=b_ms, bound_by=b_by, ok=ok)
+    emit("f32_kernel", **res)
+    if not ok:
+        fail(f"fp32 attention kernel disagrees with the plain version at {name}: rel L2 {rel}, lse {err_lse}")
+    return res
+
+
+def gt_poses(batch, views, seed, h, w):
+    """Random w2c extrinsics (B, S, 4, 4) (rotations from the QR of normal
+    matrices, translations of a few metres) and pinhole intrinsics (B, S, 3,
+    3) at the processed image size h x w (the rig's focal length, scaled,
+    +-10 %), from a seed."""
+    rng = np.random.default_rng(seed)
+    rot, _ = np.linalg.qr(rng.normal(size=(batch, views, 3, 3)))
+    rot = rot * np.sign(np.linalg.det(rot))[..., None, None]
+    ext = np.zeros((batch, views, 4, 4), np.float32)
+    ext[..., :3, :3] = rot
+    ext[..., :3, 3] = rng.normal(scale=2.0, size=(batch, views, 3))
+    ext[..., 3, 3] = 1.0
+    ixt = np.zeros((batch, views, 3, 3), np.float32)
+    ixt[..., 0, 0] = ixt[..., 1, 1] = 1266.0 * w / IMG_W * rng.uniform(0.9, 1.1, size=(batch, views))
+    ixt[..., 0, 2], ixt[..., 1, 2], ixt[..., 2, 2] = w / 2, h / 2, 1.0
+    return torch.from_numpy(ext).cuda(), torch.from_numpy(ixt).cuda()
+
+
+def gt_pose_phase(model):
+    """GT-pose conditioning through the nested net (B=2 x 6 views): the
+    camera encoder's fp32 trunk attention on the kernel, counted per shape,
+    then on the plain version with everything else the same. Returns the
+    phase's result and the fp32 launches by shape."""
+    x, _ = process_tensor_batch(images(700), process_res=504)
+    ext, ixt = gt_poses(B, S, 701, x.shape[2], x.shape[3])
+    enc = model.da3.cam_enc
+    kw = dict(extrinsics=ext, intrinsics=ixt, use_ray_pose=False, ref_view_strategy="saddle_balanced")
+    with torch.inference_mode():
+        model(x, **kw)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = model(x, **kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(attention_fwd_f32.launches_by_shape)
+        tok = enc(ext, ixt, (x.shape[2], x.shape[3]))
+        set_attn_impl(enc, "plain")
+        ref = model(x, **kw)
+        tok_ref = enc(ext, ixt, (x.shape[2], x.shape[3]))
+        set_attn_impl(enc, "auto")
+        no_poses = model(x, use_ray_pose=False, ref_view_strategy="saddle_balanced")
+    res = dict(scenes=B, views=S, image=[IMG_H, IMG_W], ms=ms, f32_launches_by_shape={str(k): n for k, n in
+                                                                                        launches.items()},
+               cam_token_rel_l2=rel_l2(tok, tok_ref), depth_rel_l2=rel_l2(got["depth"], ref["depth"]),
+               extrinsics_rel_l2=rel_l2(got["extrinsics"], ref["extrinsics"]),
+               depth_rel_l2_vs_no_poses=rel_l2(got["depth"], no_poses["depth"]),
+               tol=dict(cam_token=F32_REL_TOL, depth=POSE_DEPTH_REL_TOL),
+               depth_finite=bool(torch.isfinite(got["depth"]).all()), depth_mean=got["depth"].mean().item())
+    emit("gt_pose", **res)
+    expected = {(B, 16, S, S, 96): CAM_BLOCKS}
+    if launches != expected:
+        fail(f"gt-pose: fp32 launches {launches}, expected {expected}")
+    if tuple(got["depth"].shape) != (B, S, 280, 504) or not res["depth_finite"]:
+        fail(f"gt-pose: depth of shape {tuple(got['depth'].shape)} or non-finite")
+    if not res["depth_rel_l2_vs_no_poses"] > 0:
+        fail("gt-pose: the depth with GT poses equals the depth without them: the camera tokens did not reach it")
+    if not (res["cam_token_rel_l2"] <= F32_REL_TOL and res["depth_rel_l2"] <= POSE_DEPTH_REL_TOL):
+        fail(f"gt-pose: kernel vs plain camera tokens {res['cam_token_rel_l2']}, depth {res['depth_rel_l2']}")
+    return res, launches
+
+
+def large_cam_enc_case():
+    """One da3-large camera encoder (dim_out 1024: 16 heads of 64), random
+    weights from a seed, on B=2 x 6 GT poses: kernel vs plain tokens."""
+    enc = CameraEnc(dim_out=1024, device="cuda")
+    init_parameters_(enc, torch.Generator(device="cuda").manual_seed(11))
+    ext, ixt = gt_poses(B, S, 702, 280, 504)
+    with torch.inference_mode():
+        tok = enc(ext, ixt, (280, 504))
+        set_attn_impl(enc, "plain")
+        ref = enc(ext, ixt, (280, 504))
+    err = rel_l2(tok, ref)
+    emit("cam_enc_large", tokens=list(tok.shape), rel_l2=err, tol=F32_REL_TOL)
+    if not err <= F32_REL_TOL:
+        fail(f"da3-large CameraEnc: kernel vs plain tokens rel L2 {err}")
+    return err
+
+
+def parent_comparison(parent, fps_cases):
+    """The FPS kernel on this run's FPS cases and the dq kernel at the
+    fine-tuning shapes, of the tree at ``parent`` and of this one, timed by
+    ``recondet3d_torch/tools/kernel_times.py`` in four processes in turns:
+    parent, change, change, parent. Both trees must give the same FPS
+    indices."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(here, "recondet3d_torch", "tools", "kernel_times.py")
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "fps_inputs.pt")
+        torch.save([dict(name=c["name"], points=a[0].cpu(), valid=a[1].cpu(), start=a[2].cpu(), k=a[3])
+                    for c in fps_cases for a in [c["kernel_args"]]], inputs)
+        for tree, label in ((parent, "parent"), (here, "change"), (here, "change"), (parent, "parent")):
+            tree = os.path.abspath(tree)
+            out = subprocess.run([sys.executable, tool, inputs], cwd=tree, capture_output=True, text=True, timeout=900,
+                                 env=dict(os.environ, PYTHONPATH=tree))
+            if out.returncode != 0:
+                fail(f"kernel_times.py in {tree} failed ({out.returncode}): {out.stderr[-2000:]}")
+            runs.append(dict(tree=label, **json.loads(out.stdout.strip().splitlines()[-1])))
+    emit("parent_comparison", parent=os.path.abspath(parent), runs=runs)
+    if any(r["fps_indices_sum"] != runs[0]["fps_indices_sum"] for r in runs):
+        fail("parent comparison: the two trees' FPS kernels chose different indices")
+    return runs
 
 
 def scene_inputs(batch):
@@ -676,7 +875,7 @@ def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
     return state, res, launches
 
 
-HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")  # the two kernels on wgmma / TMA / mbarriers
+HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")  # on wgmma / TMA / mbarriers
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "MUFU.EX2", "SYNCS")
 
 
@@ -718,7 +917,12 @@ def instruction_counts(lib):
     return counts
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Run the PyTorch port on one NVIDIA GPU and check it end to end.")
+    ap.add_argument("--parent", default=None, help="an earlier tree to time the FPS and dq kernels against")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -751,6 +955,15 @@ def main():
             fail(f"{name}: no wgmma or no TMA load in its SASS: {info['sass']}")
     if any("setmaxnreg ignored" in l for stem in ("flash_attn_fwd", "flash_attn_bwd") for l in warnings[stem]):
         fail(f"ptxas ignored setmaxnreg: {warnings}")
+    # the FPS kernel's cluster launch: the cluster size it ran with, as the kernel itself reads it
+    small = torch.zeros((1000, 3), device="cuda")
+    fps_ops.furthest_point_sample_cuda(small, torch.ones(1000, dtype=torch.bool, device="cuda"),
+                                       torch.zeros(1, dtype=torch.int32, device="cuda"), 4)
+    fps_ctrl = fps_ops.furthest_point_sample_cuda.last_ctrl.tolist()
+    emit("build_fps_launch", cluster_size=fps_ctrl[2], clusters_used=fps_ctrl[3],
+         plan=fps_ops.furthest_point_sample_cuda.last_plan._asdict())
+    if fps_ctrl[2] != fps_ops.CLUSTER:
+        fail(f"the FPS kernel ran with cluster size {fps_ctrl[2]}, not {fps_ops.CLUSTER}")
 
     # 3. flash kernel vs plain at the production shapes (+ a kv_len case)
     cases = {name: kernel_case(name, shape, None, seed=i) for i, (name, shape) in enumerate(SHAPES.items())}
@@ -843,11 +1056,20 @@ def main():
         fail(f"in-situ feature rel L2 {feat_err} > {FEAT_REL_TOL}")
     del got, ref
 
+    # 6b. GT-pose conditioning: the fp32 attention kernel at the camera encoders' shapes, then the path
+    f32_cases = {name: f32_case(name, shape, seed=40 + i) for i, (name, shape) in enumerate(CAM_SHAPES.items())}
+    cam_large_err = large_cam_enc_case()
+    pose_res, f32_launches = gt_pose_phase(model)
+
     # 7. fps kernel vs plain on the buffers of the point path
     c2l, depth = scene_inputs(B)
-    exchange_us = 1e3 * time_ms(lambda: fps_ops.exchange_probe(ANCHORS), 3, warmup=1) / (ANCHORS - 1)
-    emit("fps_exchange", rounds=ANCHORS - 1, us_per_round=exchange_us)
+    # this design's exchange alone: one cluster, and the two levels of 2 and 3 clusters
+    exchange_us = {c: 1e3 * time_ms(lambda: fps_ops.exchange_probe(ANCHORS, c), 3, warmup=1) / (ANCHORS - 1)
+                   for c in (1, 2, 3)}
+    emit("fps_exchange", rounds=ANCHORS - 1, us_per_round_by_clusters=exchange_us)
     fps_cases = fps_phase(backbone, c2l, depth, exchange_us)
+    if args.parent:
+        parent_comparison(args.parent, fps_cases)
     fps_case_of = {(c["N"], c["K"]): c for c in fps_cases if c["on_main_path"]}
 
     # 8. the whole main path: ResDet3D.simple_test
@@ -1045,7 +1267,9 @@ def main():
            for key in ("ms", "plain_ms", "library_ms", "bound_ms", "exp_floor_ms")}
     by = "operations" if all(case_of[shape]["bound_by"] == "operations" for shape in flash_by_shape) else "bytes"
     fps_mix = {key: sum(fps_case_of[shape][key] * n for shape, n in fps_by_shape.items()) / REQUESTS
-               for key in ("ms", "plain_ms", "bound_ms")}
+               for key in ("ms", "plain_ms", "bound_ms", "exchange_floor_ms")}
+    fps_by = "operations" if all(fps_case_of[shape]["bound_by"] == "operations" for shape in fps_by_shape) \
+        else "bytes"
     table = {
         "kernels": [
             dict(name="flash_attn_fwd", route="cuda", source="recondet3d_torch/csrc/flash_attn_fwd.cu",
@@ -1061,11 +1285,15 @@ def main():
                  replaces="recondet3d/ops/fps_pallas.py:54", status="ported+checked", launches=fps_total,
                  max_abs_err=max(c["max_abs_err"] for c in fps_cases),
                  ms=fps_mix["ms"], plain_ms=fps_mix["plain_ms"], bound_ms=fps_mix["bound_ms"],
-                 bound_by="operations", library_ms=None, per="one request's launch mix (B=2: 4 launches)",
+                 bound_by=fps_by, exchange_floor_ms=fps_mix["exchange_floor_ms"], library_ms=None,
+                 per="one request's launch mix (B=2: 4 launches)",
+                 design="clusters of 16 CTAs, records through distributed shared memory (st.async + mbarrier), "
+                        "points in registers; a second level through device memory for clouds beyond one cluster",
                  note="max_abs_err counts differing indices (gate: 0); bound = max(bytes, K*n_valid fp32 distance "
-                      "updates, K-1 dependent grid-wide exchanges as timed in this run); no single PyTorch call "
-                      "computes FPS, so library_ms is null",
-                 exchange_us_per_round=exchange_us, shapes=fps_cases),
+                      "updates); exchange_floor_ms = (K-1) steps of this design's exchange alone as timed in this "
+                      "run; no single PyTorch call computes FPS, so library_ms is null",
+                 exchange_us_per_round=exchange_us,
+                 shapes=[{k: v for k, v in c.items() if k != "kernel_args"} for c in fps_cases]),
         ],
         "not_yet_ported": [],
     }
@@ -1083,7 +1311,7 @@ def main():
             ms=step_mix["ms"], plain_ms=shared["plain_ms"], bound_ms=step_mix["bound_ms"], bound_by="operations",
             exp_floor_ms=step_mix["exp_floor_ms"], library_ms=shared["library_ms"],
             per="one fine-tuning step's launch mix (B=1)",
-            design="mma.sync, cp.async" if kind == "dq" else "wgmma + TMA + mbarriers, warp-specialised",
+            design="wgmma + TMA + mbarriers, warp-specialised",
             note=f"computes {what}; plain_ms is attention_bwd_plain (dq, dk and dv together) and library_ms the "
                  "backward of scaled_dot_product_attention (dq, dk and dv in one call): the same numbers stand in "
                  "both backward rows; max_abs_err is the largest over dq, dk, dv and all cases",
@@ -1091,6 +1319,20 @@ def main():
                          launches_per_step=per_step[kind].get(tuple(c["shape"]), 0), **c[kind],
                          plain_ms=c["plain_ms"], library_ms=c["library_ms"], errors=c["errors"])
                     for c in list(bwd_cases.values()) + bwd_extra]))
+    table["kernels"].append(dict(
+        name="attn_fwd_f32", route="cuda", source="recondet3d_torch/csrc/attn_f32.cu",
+        replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=sum(f32_launches.values()),
+        max_abs_err=max(c["max_abs_err"] for c in f32_cases.values()),
+        **{key: sum(f32_cases["cam_enc_giant"][key] * n for n in f32_launches.values())
+           for key in ("ms", "host_ms", "plain_ms", "plain_host_ms", "library_ms", "library_host_ms", "bound_ms")},
+        bound_by=f32_cases["cam_enc_giant"]["bound_by"],
+        per="one GT-pose forward of nested-giant-large (B=2: 4 launches at (2, 16, 6, 6) D=96)",
+        design="fp32 on the CUDA cores: one CTA per (b*h, 8 query rows), K/V tiles through shared memory, "
+               "one warp per query row, online softmax with expf",
+        note="the fp32 instance of _flash_kernel (CameraEnc's trunk); ms, plain_ms and library_ms (SDPA on the same "
+             "fp32 inputs) are device time from torch.profiler, the host_* keys the time a call takes in a loop of "
+             "launches",
+        cam_enc_large_token_rel_l2=cam_large_err, gt_pose=pose_res, shapes=list(f32_cases.values())))
     table["kernels"][0]["launches_finetune_steps"] = sum(ft_launches["fwd"].values())
     table["kernels"][0]["launches_train_steps"] = sum(tr_launches["fwd"].values())
     table["kernels"][1]["launches_finetune_steps"] = sum(ft_launches["fps"].values())

@@ -5,7 +5,7 @@
 //   qs = bf16(q * scale), s = qs k^T, p = exp(s - lse) (0 for keys >= kv_len),
 //   dp = dO v^T, ds = p * (dp - delta), delta = rowsum(dO * O)  (fp32, given)
 // the two kernels compute
-//   dq = scale * (bf16(ds) k)                      one CTA per 64 query rows
+//   dq = scale * (bf16(ds) k)                      one CTA per 64 * CONSUMERS query rows (128)
 //   dv = bf16(p)^T dO,  dk = scale * (bf16(ds)^T q) one CTA per 64 * CONSUMERS key rows (128)
 // with every product in bf16 and fp32 accumulators. P and dS are recomputed
 // tile by tile from lse and never reach device memory. No atomics: the dq
@@ -16,11 +16,31 @@
 // operations over a few (N+M)*D*2 bytes per head, hundreds of operations per
 // byte at N = 721 / 4326, and one ex2 per score on the MUFU (16 a clock per SM).
 //
-// dq kernel (first design, mma.sync.m16n8k16, building blocks in
-// flash_attn_common.cuh): 4 warps, a warp's 16 query rows of Qs and dO held as
-// A fragments in registers, 64-key K/V tiles double-buffered through shared
-// memory by cp.async; S = Qs K^T and dP = dO V^T, dS re-packed in registers as
-// the A operand of dS K with the K tile as transposed B through ldmatrix.trans.
+// dq kernel (Hopper design, building blocks in hopper_common.cuh; it follows
+// the forward, with two score-like products per key tile):
+//   - one CTA = one producer warpgroup + CONSUMERS warpgroups of 64 query
+//     rows; the producer gives up its registers (setmaxnreg) and one of its
+//     threads issues every TMA copy: each consumer's Q (the score operand) and
+//     dO tiles once, then 64-key K and V tiles through a ring of STAGES (4)
+//     stages with full/empty mbarriers, on the 3-D tensor maps of the forward;
+//   - S = Q K^T and dP = dO V^T on wgmma m64n64k16 with both operands in
+//     shared memory; P = 2^(S * mul * log2(e) - lse * log2(e)) and
+//     dS = P (dP - delta) in registers (lse and delta of a thread's two rows
+//     are loaded once: their rows are not 16-byte aligned at N = 721, so TMA
+//     cannot carry them); dQ += bf16(dS) K on wgmma m64n64k16 with dS from
+//     registers and the K tile as the transposed B operand, as the forward
+//     feeds V to PV;
+//   - inside a warpgroup, S and dP of tile j are issued with dQ of tile j - 1,
+//     so dS of tile j is formed while that product runs; across warpgroups,
+//     named barriers pass the turn to issue products, so one warpgroup's
+//     exponentials run under the other's products;
+//   - a power-of-two scale is applied to S in fp32 (`mul`) on raw q; another
+//     scale comes as bf16(q * scale) with mul = 1. dQ takes its trailing scale
+//     in fp32.
+// 64-key tiles and four stages measured fastest on an H100 without a spill:
+// 128-key tiles hold S and dP in 128 registers a thread and spill ~1 KB; two
+// stages stall the producer behind the dQ product of the previous tile (1.4-1.6x
+// slower); three stages spill 12 bytes and ran 3-5 % behind four.
 //
 // dk/dv kernel (Hopper design, building blocks in hopper_common.cuh):
 //   - one CTA = one producer warpgroup + CONSUMERS warpgroups of 64 keys; the
@@ -51,97 +71,244 @@
 //
 // C interface for ctypes: each function returns a cudaError_t value after its launch.
 
-#include "flash_attn_common.cuh"
 #include "hopper_common.cuh"
 
-namespace {
+namespace dq {
 
-__device__ __forceinline__ void zero(float (&a)[8][4]) {
+using hopper::bf16;
+using hopper::desc_sw128;
+using hopper::DESC_K16_COLS;
+using hopper::DESC_K16_ROWS;
+using hopper::ex2;
+using hopper::fence_regs;
+using hopper::LOG2E;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::named_arrive;
+using hopper::named_sync;
+using hopper::pack_a;
+using hopper::ROW_BYTES;
+using hopper::tma_load_rows;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_m64n64_rs_bt;
+using hopper::wgmma_m64n64_ss;
+using hopper::wgmma_wait;
+
+constexpr int CONSUMERS = 2;             // consumer warpgroups of 64 query rows
+constexpr int STAGES = 4;                // K/V ring depth
+constexpr int BLOCK_M = 64 * CONSUMERS;  // query rows per CTA
+constexpr int BLOCK_N = 64;              // keys per K/V tile
+constexpr int KC = BLOCK_N / 16;         // 16-key chunks of a tile: the A operands of dS K
+constexpr int NTHREADS = 128 * (CONSUMERS + 1);
+// registers per thread after setmaxnreg, within the 64K of one CTA per SM
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr uint32_t Q_BYTES = 64 * ROW_BYTES;
+constexpr uint32_t KV_BYTES = BLOCK_N * ROW_BYTES;
+
+struct alignas(1024) Smem {
+  bf16 q[CONSUMERS][64 * 64];     // the score operand (raw q, or bf16(q * scale))
+  bf16 dout[CONSUMERS][64 * 64];
+  bf16 k[STAGES][BLOCK_N * 64];
+  bf16 v[STAGES][BLOCK_N * 64];
+  uint64_t q_full;
+  uint64_t k_full[STAGES], k_empty[STAGES];
+  uint64_t v_full[STAGES], v_empty[STAGES];
+};
+
+constexpr int SMEM_BYTES = sizeof(Smem) + 1024;
+
+// d (64 x 64) = A (64 x 64, shared, K-major) * B (64 x 64 rows, shared, K-major)^T
+__device__ __forceinline__ void product_t(float (&d)[32], uint64_t a_desc, uint64_t b_desc) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_ss(d, a_desc + kk * DESC_K16_COLS, b_desc + kk * DESC_K16_COLS, kk);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, const int* __restrict__ kv_len, bf16* __restrict__ dq,
-                        int H, int N, int M, float scale) {
-  __shared__ __align__(128) bf16 Ks[2][TILE * SROW];
-  __shared__ __align__(128) bf16 Vs[2][TILE * SROW];
-
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ kv_len, bf16* __restrict__ dq, int H, int N, int M, float mul,
+                        float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(hopper::align_1024(smem_raw));
   const int bh = blockIdx.y;
-  const int m0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qo = (size_t)bh * N * D;
-  const size_t ko = (size_t)bh * M * D;
+  const int m0 = blockIdx.x * BLOCK_M;
   const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
-  const int n_blocks = (kv_lim + TILE - 1) / TILE;
+  const int n_tiles = (kv_lim + BLOCK_N - 1) / BLOCK_N;
+  const int wg = threadIdx.x / 128;
 
-  if (n_blocks > 0) {
-    load_tile(Ks[0], k + ko, 0, M);
-    load_tile(Vs[0], v + ko, 0, M);
-  }
-  cp_async_commit();
-
-  // this warp's 16 query rows: Qs and dO as A fragments, lse and delta per row
-  const int r0 = m0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a_frags(qf, q + qo, r0, r1, N, t, scale);
-  load_a_frags(dof, dout + qo, r0, r1, N, t, 1.f);
-  const float lse_r[2] = {r0 < N ? lse[(size_t)bh * N + r0] : 0.f, r1 < N ? lse[(size_t)bh * N + r1] : 0.f};
-  const float dl_r[2] = {r0 < N ? delta[(size_t)bh * N + r0] : 0.f, r1 < N ? delta[(size_t)bh * N + r1] : 0.f};
-
-  float acc[D / 8][4];
-  zero(acc);
-
-  for (int j = 0; j < n_blocks; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_blocks) {
-      load_tile(Ks[buf ^ 1], k + ko, (j + 1) * TILE, M);
-      load_tile(Vs[buf ^ 1], v + ko, (j + 1) * TILE, M);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], 4 * CONSUMERS);  // one arrival per consumer warp
+      mbar_init(&sm.v_empty[s], 4 * CONSUMERS);
     }
-    __syncthreads();
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-    float s[TILE / 8][4], dp[TILE / 8][4];
-    zero(s);
-    zero(dp);
-    mma_a_bt(s, qf, Ks[buf], lane);    // S = Qs K^T
-    mma_a_bt(dp, dof, Vs[buf], lane);  // dP = dO V^T
-
-    const int kbase = j * TILE;
-    const bool edge = kbase + TILE > kv_lim;
-#pragma unroll
-    for (int nt = 0; nt < TILE / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const bool keep = !edge || (kbase + nt * 8 + 2 * t + (e & 1) < kv_lim);
-        const float p = keep ? __expf(s[nt][e] - lse_r[i]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dl_r[i]);  // dS
+  if (wg == CONSUMERS) {
+    // producer: one thread issues every copy, the other 127 leave
+    hopper::regs_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::prefetch_map(&tm_q);
+      hopper::prefetch_map(&tm_do);
+      hopper::prefetch_map(&tm_k);
+      hopper::prefetch_map(&tm_v);
+      mbar_arrive_expect_tx(&sm.q_full, 2 * CONSUMERS * Q_BYTES);
+      for (int w = 0; w < CONSUMERS; ++w) {
+        tma_load_rows(sm.q[w], &tm_q, &sm.q_full, m0 + 64 * w, bh);
+        tma_load_rows(sm.dout[w], &tm_do, &sm.q_full, m0 + 64 * w, bh);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const uint32_t parity = ((j / STAGES) & 1) ^ 1;  // round 0 passes: the ring starts empty
+        mbar_wait(&sm.k_empty[s], parity);
+        mbar_arrive_expect_tx(&sm.k_full[s], KV_BYTES);
+        tma_load_rows(sm.k[s], &tm_k, &sm.k_full[s], j * BLOCK_N, bh);
+        mbar_wait(&sm.v_empty[s], parity);
+        mbar_arrive_expect_tx(&sm.v_full[s], KV_BYTES);
+        tma_load_rows(sm.v[s], &tm_v, &sm.v_full[s], j * BLOCK_N, bh);
       }
     }
-    mma_p_b(acc, s, Ks[buf], lane);  // dQ += bf16(dS) K
-    __syncthreads();                 // buffer `buf` is refilled at iteration j + 1
+  } else {
+    hopper::regs_alloc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    const int c = lane % 4;
+    const int row0 = m0 + 64 * wg + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
+    const float k_log2 = mul * LOG2E;
+    float nl[2], dl[2];  // -lse * log2(e) and delta of the two rows, loaded once
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const size_t at = static_cast<size_t>(bh) * N + row;
+      nl[h] = row < N ? -lse[at] * LOG2E : 0.f;
+      dl[h] = row < N ? delta[at] : 0.f;
+    }
+
+    // turns to issue products pass from warpgroup wg to wg + 1 (named barriers 1..CONSUMERS), as in the forward
+    const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % CONSUMERS;
+    if (wg == CONSUMERS - 1 && n_tiles > 0) named_arrive(1, 256);
+
+    const uint64_t q_desc = desc_sw128(sm.q[wg]), do_desc = desc_sw128(sm.dout[wg]);
+    float s[BLOCK_N / 2], dp[BLOCK_N / 2], acc[32];
+    uint32_t da[KC][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    auto issue_s_dp = [&](int j) {
+      product_t(s, q_desc, desc_sw128(sm.k[j % STAGES]));
+      product_t(dp, do_desc, desc_sw128(sm.v[j % STAGES]));
+      wgmma_commit();
+    };
+    auto issue_dq = [&](int j) {
+      const uint64_t k_desc = desc_sw128(sm.k[j % STAGES]);
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) wgmma_m64n64_rs_bt(acc, da[kk], k_desc + kk * DESC_K16_ROWS, 1);
+      wgmma_commit();
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // dS of tile j into s: p = 2^(s * mul * log2(e) - lse * log2(e)), 0 for keys >= kv_len (or M)
+    auto grad_scores = [&](int j) {
+      const int kbase = j * BLOCK_N;
+      const bool edge = kbase + BLOCK_N > kv_lim;
+#pragma unroll
+      for (int e = 0; e < BLOCK_N / 2; ++e) {
+        const int h = (e / 2) % 2;
+        const bool keep = !edge || kbase + 8 * (e / 4) + 2 * c + (e % 2) < kv_lim;
+        const float p = keep ? ex2(fmaf(s[e], k_log2, nl[h])) : 0.f;
+        s[e] = p * (dp[e] - dl[h]);
+      }
+    };
+
+    mbar_wait(&sm.q_full, 0);
+    if (n_tiles > 0) {
+      // turn 0: S and dP of tile 0
+      mbar_wait(&sm.k_full[0], 0);
+      mbar_wait(&sm.v_full[0], 0);
+      named_sync(my_turn, 256);
+      wgmma_fence();
+      issue_s_dp(0);
+      named_arrive(next_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      release(&sm.v_empty[0]);
+      grad_scores(0);
+      pack_a<KC>(da, s);
+
+      // turns 1 .. n_tiles - 1: S and dP of tile j with dQ += dS K of tile j - 1
+      for (int j = 1; j < n_tiles; ++j) {
+        const int sj = j % STAGES, sp = (j - 1) % STAGES;
+        mbar_wait(&sm.k_full[sj], (j / STAGES) & 1);
+        mbar_wait(&sm.v_full[sj], (j / STAGES) & 1);
+        named_sync(my_turn, 256);
+        wgmma_fence();
+        issue_s_dp(j);
+        issue_dq(j - 1);
+        named_arrive(next_turn, 256);
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        release(&sm.v_empty[sj]);
+        grad_scores(j);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(&sm.k_empty[sp]);
+        pack_a<KC>(da, s);
+      }
+
+      // last turn: dQ += dS K of the last tile
+      const int sl = (n_tiles - 1) % STAGES;
+      named_sync(my_turn, 256);
+      wgmma_fence();
+      issue_dq(n_tiles - 1);
+      if (wg != CONSUMERS - 1) named_arrive(next_turn, 256);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(&sm.k_empty[sl]);
+    }
+    hopper::store_acc_rows(dq + static_cast<size_t>(bh) * N * 64, acc, row0, N, c, scale);
   }
-  store_rows(dq + qo, acc, r0, r1, N, t, scale);
 }
 
-}  // namespace
-
-extern "C" int flash_attn_bwd_dq_bf16_d64(const void* q, const void* k, const void* v, const void* dout,
-                                          const void* lse, const void* delta, const void* kv_len, void* dq, int B,
-                                          int H, int N, int M, float scale, void* stream) {
-  const dim3 grid((N + TILE - 1) / TILE, B * H);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<bf16*>(dq), H, N, M, scale);
+int launch_dq(const void* qk, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+              const void* kv_len, void* dq, int B, int H, int N, int M, float mul, float scale, void* stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  int err = hopper::make_row_map(&tm_q, qk, N, B * H, 64);
+  if (!err) err = hopper::make_row_map(&tm_do, dout, N, B * H, 64);
+  if (!err) err = hopper::make_row_map(&tm_k, k, M, B * H, BLOCK_N);
+  if (!err) err = hopper::make_row_map(&tm_v, v, M, B * H, BLOCK_N);
+  if (err) return err;
+  static std::atomic<uint32_t> smem_allowed{0};
+  err = hopper::allow_dynamic_smem(flash_bwd_dq_kernel, SMEM_BYTES, smem_allowed);
+  if (err) return err;
+  const dim3 grid((N + BLOCK_M - 1) / BLOCK_M, B * H);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(kv_len), static_cast<bf16*>(dq), H, N, M, mul, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dq
+
+// qk: the score operand (raw q when mul is the scale, else bf16(q * scale)), dout, dq: (B*H, N, 64) bf16;
+// k, v: (B*H, M, 64) bf16; lse, delta: (B*H, N) fp32; kv_len (B,) int32 or null; mul: the fp32 multiplier of
+// qk k^T; scale: dq's trailing scale
+extern "C" int flash_attn_bwd_dq_bf16_d64(const void* qk, const void* k, const void* v, const void* dout,
+                                          const void* lse, const void* delta, const void* kv_len, void* dq, int B,
+                                          int H, int N, int M, float mul, float scale, void* stream) {
+  return dq::launch_dq(qk, k, v, dout, lse, delta, kv_len, dq, B, H, N, M, mul, scale, stream);
 }
 
 
@@ -358,7 +525,7 @@ extern "C" int flash_attn_bwd_dkv_bf16_d64(const void* q, const void* qs, const 
   const dim3 grid((M + dkv::BLOCK_K - 1) / dkv::BLOCK_K, B * H);
   dkv::flash_bwd_dkv_kernel<<<grid, dkv::NTHREADS, dkv::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_qs, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, M, mul, scale,
+      static_cast<const int*>(kv_len), static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv), H, N, M, mul, scale,
       separate_qs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,9 @@
 Both run fp32. ``CameraEnc`` turns GT poses into conditioning tokens
 (9-D encoding -> MLP -> 4 transformer blocks); it runs only when the caller
 passes GT extrinsics, which the main path does not. Its trunk attention is
-fp32 with head dim dim_out / 16 (96 at giant scale), which the bf16 / D=64
-CUDA kernel does not take, so on CUDA it raises until the kernel variant of
-ROADMAP §2 item 5 exists; on the CPU it runs the plain version.
+fp32 with head dim dim_out / 16 (24 at small, 96 at giant scale) over one
+token a view: on CUDA it runs the fp32 attention kernel
+(``ops/attention.py`` ``attention_fwd_f32``), on the CPU the plain version.
 """
 
 from __future__ import annotations
@@ -37,12 +37,6 @@ class CameraEnc(nn.Module):
 
     def forward(self, ext, ixt, image_size_hw: Tuple[int, int]):
         """ext: (B, S, 3or4, 4) w2c; ixt: (B, S, 3, 3) -> tokens (B, S, C)."""
-        if ext.is_cuda:
-            raise NotImplementedError(
-                "CameraEnc (GT-pose conditioning) runs fp32 attention with head dim "
-                f"{self.trunk[0].attn.qkv.in_features // self.trunk[0].attn.num_heads}, which the "
-                "bf16/D=64 flash kernel does not take; the kernel variant is ROADMAP §2 item 5"
-            )
         c2ws = affine_inverse(ext.float())
         enc = extri_intri_to_pose_encoding(c2ws, ixt.float(), image_size_hw)
         tok = self.token_norm(self.pose_branch(enc))

@@ -26,18 +26,20 @@ None of them lets the (N, M) scores reach device memory, and none uses
 atomics, so gradients are the same bits from run to run. The ragged N and M
 edges and ``kv_len`` are masked in the kernels; nothing is padded on the host.
 
-The forward and dk/dv kernels (``csrc/flash_attn_fwd.cu``,
-``csrc/flash_attn_bwd.cu`` ``flash_bwd_dkv_kernel``, building blocks in
-``csrc/hopper_common.cuh``) are Hopper kernels: a producer warpgroup whose
-one thread issues TMA copies of 128-byte-swizzled tiles (3-D tensor maps,
-built on the host through the driver entry point) into an mbarrier ring in
-dynamic shared memory, and consumer warpgroups of 64 rows (queries in the
-forward, keys in dk/dv) that run every product on ``wgmma``; ``setmaxnreg``
+The three kernels (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``,
+building blocks in ``csrc/hopper_common.cuh``) are Hopper kernels: a
+producer warpgroup whose one thread issues TMA copies of 128-byte-swizzled
+tiles (3-D tensor maps, built on the host through the driver entry point)
+into an mbarrier ring in dynamic shared memory, and consumer warpgroups of
+64 rows (queries in the forward and dq, keys in dk/dv) that run every
+product on ``wgmma``; ``setmaxnreg``
 moves registers from the producer to the consumers. In the forward the
 consumers take turns on named barriers so that one's softmax runs under the
-other's products. The dq kernel is still the first design: 4 warps on
-``mma.sync.m16n8k16`` with ``cp.async`` double buffering (shared blocks in
-``csrc/flash_attn_common.cuh``).
+other's products. The dq kernel (``csrc/flash_attn_bwd.cu``
+``flash_bwd_dq_kernel``) has the forward's shape: a producer streams K and V
+tiles by TMA, and consumer warpgroups of 64 query rows run S and dP on
+``wgmma`` from shared memory and dQ += dS K with dS from registers, taking
+turns on named barriers.
 
 The scale: ``score_operand`` hands the kernels raw q and the scale as an
 fp32 multiplier of the scores when the scale is a power of two (every call
@@ -48,6 +50,13 @@ exactly; for any other scale it hands them bf16(q * scale) and 1.
 return lse) and ``attention_bwd_plain`` (explicit formulae with the kernels'
 roundings, no autograd) are the kernels' plain versions: the CPU path and
 the reference the kernels are checked against on the card.
+
+fp32. The JAX package runs ``_flash_kernel`` in fp32 for the camera
+encoder's trunk (GT-pose conditioning: 16 heads of dim_out / 16, D = 24 to
+96, one token a view). ``attention_fwd_f32`` (``csrc/attn_f32.cu``) is that
+instance: fp32 products on the CUDA cores (no TF32), online softmax with
+``expf``, out and lse as ``attention_plain`` gives them. Its backward is not
+ported (no path of the port differentiates through it).
 """
 
 from __future__ import annotations
@@ -65,6 +74,9 @@ __all__ = [
     "attention_plain",
     "attention_bwd_plain",
     "flash_attention_fwd",
+    "attention_fwd_f32",
+    "kernel_variant",
+    "check_backward_supported",
     "flash_attention_bwd",
     "flash_attention_bwd_dq",
     "flash_attention_bwd_dkv",
@@ -75,6 +87,7 @@ __all__ = [
 
 _NEG_INF = -1e30
 _HEAD_DIM = 64
+_F32_MAX_HEAD_DIM = 128
 
 
 def attention_plain(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,8 +144,10 @@ def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None):
 
 
 _ARGTYPES = {
+    "attn_fwd_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
     "flash_attn_fwd_bf16_d64": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    "flash_attn_bwd_dq_bf16_d64": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attn_bwd_dq_bf16_d64": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+    + [ctypes.c_void_p],
     "flash_attn_bwd_dkv_bf16_d64": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
     + [ctypes.c_void_p],
 }
@@ -142,7 +157,7 @@ _ARGTYPES = {
 def _kernel_fn(name: str):
     from recondet3d_torch.ops.build import load_kernels
 
-    library = "flash_attn_fwd" if name == "flash_attn_fwd_bf16_d64" else "flash_attn_bwd"
+    library = {"flash_attn_fwd_bf16_d64": "flash_attn_fwd", "attn_fwd_f32": "attn_f32"}.get(name, "flash_attn_bwd")
     fn = getattr(load_kernels()[library], name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
@@ -186,7 +201,8 @@ def _check_kernel_inputs(what: str, q, k, v, kv_len, scale, like_q=(), row_stats
 
 def _launch(wrapper, name: str, tensors, shape, floats, device):
     """Launch kernel ``name`` on PyTorch's current stream with ``tensors``
-    (None = a null pointer), (B, H, N, M) and the fp32 arguments ``floats``;
+    (None = a null pointer), the int arguments ``shape`` ((B, H, N, M), and
+    D for the fp32 kernel) and the fp32 arguments ``floats``;
     raises if the launch is refused and adds one to ``wrapper``'s counts."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -218,20 +234,79 @@ def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor,
     return out, lse
 
 
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel that takes CUDA inputs of this dtype and head dim:
+    'bf16_d64' (``csrc/flash_attn_fwd.cu``, the DA3 trunks) or 'f32'
+    (``csrc/attn_f32.cu``: fp32, D any multiple of 8 up to 128, the
+    camera encoder's trunk). Raises ValueError for anything else."""
+    if dtype == torch.bfloat16 and head_dim == _HEAD_DIM:
+        return "bf16_d64"
+    if dtype == torch.float32 and head_dim % 8 == 0 and 8 <= head_dim <= _F32_MAX_HEAD_DIM:
+        return "f32"
+    raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: bf16 takes D = {_HEAD_DIM}, "
+                     f"fp32 any multiple of 8 up to {_F32_MAX_HEAD_DIM}")
+
+
+def attention_fwd_f32(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 attention forward: (out (B, H, N, D) fp32, lse (B, H, N) fp32),
+    what ``attention_plain`` computes on fp32 inputs.
+
+    CPU tensors take the plain version. CUDA tensors launch
+    ``csrc/attn_f32.cu``, which takes contiguous fp32 (B, H, N, D) inputs
+    with D a multiple of 8 up to 128; anything else raises. Each launch adds
+    one to ``attention_fwd_f32.launches`` and to
+    ``attention_fwd_f32.launches_by_shape[(B, H, N, M, D)]``.
+    """
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, kv_len, scale)
+    if any(t.device != q.device for t in (k, v)) or q.device.type != "cuda":
+        raise ValueError(f"attention_fwd_f32: tensors on {q.device}/{k.device}/{v.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4 or kernel_variant(t.dtype, t.shape[-1]) != "f32" or not t.is_contiguous():
+            raise ValueError(f"attention_fwd_f32 takes contiguous fp32 (B, H, N, D); {name} is "
+                             f"{t.dtype} {tuple(t.shape)}")
+    B, H, N, D = q.shape
+    M = k.shape[2]
+    if k.shape != (B, H, M, D) or v.shape != k.shape or N == 0 or M == 0 or B * H > 65535:
+        raise ValueError(f"attention_fwd_f32: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if kv_len is not None:
+        if kv_len.shape != (B,) or kv_len.device != q.device:
+            raise ValueError(f"kv_len must be ({B},) on {q.device}; got {tuple(kv_len.shape)} on {kv_len.device}")
+        kv_len = kv_len.to(torch.int32).contiguous()
+    scale = D ** -0.5 if scale is None else float(scale)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    _launch(attention_fwd_f32, "attn_fwd_f32", (q, k, v, kv_len, out, lse), (B, H, N, M, D), (scale,), q.device)
+    return out, lse
+
+
+def check_backward_supported(q) -> None:
+    """The backward kernels take bf16, D = 64. fp32 inputs off the CPU (the
+    camera encoder's trunk on the card) have a forward kernel but no
+    backward: no path of the port differentiates through them. Raises
+    NotImplementedError for them."""
+    if q.dtype == torch.float32 and q.device.type != "cpu":
+        raise NotImplementedError(
+            "the backward of fp32 attention on the card (GT-pose conditioning, CameraEnc) is not ported: "
+            "ROADMAP §2 item 6")
+
+
 def _check_bwd_inputs(what, q, k, v, dout, lse, delta, kv_len, scale):
     return _check_kernel_inputs(what, q, k, v, kv_len, scale, like_q=(("dout", dout),),
                                 row_stats=(("lse", lse), ("delta", delta)))
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, scale=None) -> torch.Tensor:
-    """dq (B, H, N, D) bf16 from the dq kernel: one CTA per 64 query rows,
-    looping over the keys. CUDA tensors only (``flash_attention_bwd`` takes
-    CPU tensors to the plain version); ``delta`` (B, H, N) fp32 is
-    rowsum(dout * out). Counts its launches like ``flash_attention_fwd``."""
+    """dq (B, H, N, D) bf16 from the dq kernel: one CTA per 128 query rows
+    (two warpgroups of 64), looping over the keys. CUDA tensors only
+    (``flash_attention_bwd`` takes CPU tensors to the plain version);
+    ``delta`` (B, H, N) fp32 is rowsum(dout * out). Counts its launches like
+    ``flash_attention_fwd``."""
     B, H, N, M, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", q, k, v, dout, lse, delta, kv_len, scale)
+    qk, mul = score_operand(q, scale)
     dq = torch.empty_like(q)
-    _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16_d64", (q, k, v, dout, lse, delta, kv_len, dq),
-            (B, H, N, M), (scale,), q.device)
+    _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16_d64", (qk, k, v, dout, lse, delta, kv_len, dq),
+            (B, H, N, M), (mul, scale), q.device)
     return dq
 
 
@@ -268,7 +343,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_len=None, scale=None):
 
 
 def reset_launch_counts() -> None:
-    for wrapper in (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    for wrapper in (flash_attention_fwd, attention_fwd_f32, flash_attention_bwd_dq, flash_attention_bwd_dkv):
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
 
@@ -283,7 +358,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, scale):
-        out, lse = flash_attention_fwd(q, k, v, kv_len, scale)
+        fwd = flash_attention_fwd
+        if q.device.type != "cpu" and kernel_variant(q.dtype, q.shape[-1]) == "f32":
+            fwd = attention_fwd_f32
+        out, lse = fwd(q, k, v, kv_len, scale)
         ctx.save_for_backward(q, k, v, out, lse, kv_len)
         ctx.scale = scale
         return out
@@ -291,6 +369,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, kv_len = ctx.saved_tensors
+        check_backward_supported(q)
         # the gradient arrives through a transpose of the output: the kernels take it contiguous
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), kv_len, ctx.scale)
         return dq, dk, dv, None, None
@@ -303,7 +382,9 @@ def flash_attention(q, k, v, kv_len=None, scale=None, impl: str = "auto") -> tor
     impl: 'auto' runs the kernels on CUDA tensors (forward, and the two
     backward kernels when a gradient flows) and the plain versions on CPU
     tensors; 'plain' forces ``attention_plain`` under autograd (the
-    reference runs).
+    reference runs). On CUDA, bf16 with D = 64 goes to the flash kernels and
+    fp32 (D a multiple of 8 up to 128) to the fp32 forward kernel, whose
+    backward raises NotImplementedError; other inputs raise ValueError.
     """
     if impl == "plain":
         return attention_plain(q, k, v, kv_len, scale)[0]

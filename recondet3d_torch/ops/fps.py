@@ -6,16 +6,20 @@ Replaces the Pallas TPU kernel ``_fps_kernel``
 selections over (N, 3) fp32 points with a validity mask, in one launch.
 
 What bounds it on an H100: the K selections are strictly sequential and
-each needs the argmax over all N points, so the floor is K grid-wide
-exchanges, not the 13 bytes a point that are read once, nor the K*N
-distance updates. ``csrc/fps.cu`` therefore runs one persistent
-cooperative launch of a few dozen blocks (at most one per SM): each block
-keeps its share of the valid points, their indices and their running
-min-distances in shared memory for the whole launch, and a selection costs
-one pass over that share, a block argmax and one 64-bit word per block
-exchanged through L2. The TPU kernel's lane planes, scalar tournament and
-AABB block pruning answer that machine's costs and are not carried over;
-results do not depend on them.
+each needs the argmax over all valid points, so the floor of any design is
+K exchanges of a candidate between the parts of the card that hold the
+points, not the 13 bytes a point read once, nor the K * n_valid distance
+updates. ``csrc/fps.cu`` therefore runs one launch of thread-block
+clusters of 16 CTAs: a cluster shares the valid points (in registers, and
+in shared memory beyond 5,120 a CTA), and a selection costs one pass over a
+CTA's share, a CTA argmax and one 20-byte record a CTA written into every
+peer's shared memory (``st.async`` completing on the peer's mbarrier). When
+the valid points do not fit in one cluster, the clusters exchange one
+tagged record each through device memory as well. The kernel decides how
+many clusters a cloud needs from its valid count; the launch has as many as
+N could need (``launch_plan``). The TPU kernel's lane planes, scalar
+tournament and AABB block pruning answer that machine's costs and are not
+carried over; results do not depend on them.
 
 The kernel rounds and breaks ties exactly as
 ``ops.sampling.furthest_point_sample_plain`` does, so the two return the
@@ -27,16 +31,45 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["furthest_point_sample_cuda", "exchange_probe", "reset_launch_counts", "MAX_POINTS"]
+__all__ = ["furthest_point_sample_cuda", "exchange_probe", "launch_plan", "FpsPlan", "reset_launch_counts",
+           "MAX_POINTS", "CLUSTER"]
 
 MAX_POINTS = (1 << 22) - 2  # the kernel packs an index into 22 bits
-_SMEM_POINTS = (232448 - 1024) // 20  # rows one block can keep resident (20 B each), as csrc/fps.cu sizes it
-_SLOTS = 2048  # 64-bit exchange words: two per block, at most one block per SM
-_THREADS = 512
-_BLOCKS = 0  # 0: the kernel's default (44, more where a share would not fit in shared memory)
+# the launch shape csrc/fps.cu fixes: 16 CTAs a cluster, 512 threads a CTA, 10 points a thread in registers
+CLUSTER = 16
+REG_POINTS = 10 * 512
+MAX_CLUSTERS = 7  # the most clusters of 16 CTAs an H100 runs at once at a CTA's full shared memory
+_SMEM_LIMIT, _SMEM_FIXED = 232448, 2048  # a CTA's shared memory, and the part before the points
+# points a CTA can hold: 16 B of {x, y, z, index} each in shared memory, and 4 B of min-distance beyond the registers
+CTA_MAX_POINTS = (_SMEM_LIMIT - _SMEM_FIXED + 4 * REG_POINTS) // 20
+_CTRL_HEAD, _SLOT_WORDS = 4, 2 * MAX_CLUSTERS * 4
+
+
+class FpsPlan(NamedTuple):
+    clusters: int  # clusters launched: as many as N points could need
+    cta_cap: int  # points a CTA can hold
+    smem_points: int  # of those, the points beyond the registers
+    smem_bytes: int  # dynamic shared memory a CTA
+
+
+def launch_plan(n: int) -> FpsPlan:
+    """The launch for an N-row buffer, as if every row were valid: the
+    fewest clusters whose CTAs hold N points, each CTA's capacity and its
+    shared memory. Raises ValueError above ``MAX_POINTS`` or when N needs
+    more than ``MAX_CLUSTERS`` clusters."""
+    if not 1 <= n <= MAX_POINTS:
+        raise ValueError(f"fps kernel: N={n} (1..{MAX_POINTS})")
+    clusters = -(-n // (CLUSTER * CTA_MAX_POINTS))
+    if clusters > MAX_CLUSTERS:
+        raise ValueError(f"fps kernel: N={n} rows do not fit the shared memory of {MAX_CLUSTERS} clusters "
+                         f"({CLUSTER * CTA_MAX_POINTS} points a cluster)")
+    cta_cap = -(-n // (clusters * CLUSTER))
+    smem_points = max(0, cta_cap - REG_POINTS)
+    return FpsPlan(clusters, cta_cap, smem_points, _SMEM_FIXED + 16 * cta_cap + 4 * smem_points)
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,22 +77,24 @@ def _lib():
     from recondet3d_torch.ops.build import load_kernels
 
     lib = load_kernels()["fps"]
-    lib.fps_f32.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-                            + [ctypes.c_int, ctypes.c_void_p])
+    lib.fps_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
     lib.fps_f32.restype = ctypes.c_int
-    lib.fps_exchange_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.fps_exchange_probe.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
     lib.fps_exchange_probe.restype = ctypes.c_int
     return lib
 
 
 def furthest_point_sample_cuda(points: torch.Tensor, valid: torch.Tensor, start: torch.Tensor,
-                               num_samples: int, threads: int = _THREADS, blocks: int = _BLOCKS) -> torch.Tensor:
+                               num_samples: int) -> torch.Tensor:
     """points (N, 3) fp32, valid (N,) bool, start (1,) int32 (the first
     selected index), all contiguous on one CUDA device -> (K,) int32.
 
     Each launch adds one to ``furthest_point_sample_cuda.launches`` and to
-    ``furthest_point_sample_cuda.launches_by_shape[(N, K)]``.
+    ``furthest_point_sample_cuda.launches_by_shape[(N, K)]``; ``last_args``
+    is the launch's ``(points, valid, start, K)``, ``last_plan`` its
+    ``FpsPlan`` and ``last_ctrl`` a device tensor whose entries 2 and 3
+    hold, once the kernel has run, the cluster size it ran with and the
+    clusters it used.
     """
     if points.device.type != "cuda" or valid.device != points.device or start.device != points.device:
         raise ValueError(f"fps kernel: tensors on {points.device}/{valid.device}/{start.device}")
@@ -71,44 +106,49 @@ def furthest_point_sample_cuda(points: torch.Tensor, valid: torch.Tensor, start:
     if start.dtype != torch.int32 or start.numel() != 1:
         raise ValueError("fps kernel takes start as one int32 element")
     K = int(num_samples)
-    if not 1 <= N <= MAX_POINTS or K < 1:
-        raise ValueError(f"fps kernel: N={N} (1..{MAX_POINTS}), K={K}")
-    sms = torch.cuda.get_device_properties(points.device).multi_processor_count
-    if N > sms * (_SMEM_POINTS // 32) * 32:
-        raise ValueError(f"fps kernel: N={N} rows do not fit the shared memory of {sms} blocks")
-    out = torch.empty(K, dtype=torch.int32, device=points.device)
-    slots = torch.zeros(_SLOTS, dtype=torch.int64, device=points.device)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
-    with torch.cuda.device(points.device):
-        err = _lib().fps_f32(points.data_ptr(), valid.data_ptr(), start.data_ptr(), N, K, int(threads),
-                             int(blocks), out.data_ptr(), slots.data_ptr(), _SLOTS, stream)
+    if K < 1:
+        raise ValueError(f"fps kernel: K={K}")
+    plan = launch_plan(N)
+    dev = points.device
+    out = torch.empty(K, dtype=torch.int32, device=dev)
+    staging = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    ctrl = torch.zeros(_CTRL_HEAD + CLUSTER * plan.clusters, dtype=torch.int32, device=dev)
+    slots = torch.zeros(_SLOT_WORDS, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib().fps_f32(points.data_ptr(), valid.data_ptr(), start.data_ptr(), N, K, plan.clusters,
+                             plan.cta_cap, plan.smem_points, staging.data_ptr(), ctrl.data_ptr(), slots.data_ptr(),
+                             out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"fps kernel launch failed: cudaError {err} (N={N}, K={K}, threads={threads}, "
-                           f"blocks={blocks})")
+        raise RuntimeError(f"fps kernel launch failed: cudaError {err} (N={N}, K={K}, {plan})")
     fn = furthest_point_sample_cuda
     fn.launches += 1
     fn.launches_by_shape[(N, K)] = fn.launches_by_shape.get((N, K), 0) + 1
+    fn.last_args, fn.last_plan, fn.last_ctrl = (points, valid, start, K), plan, ctrl
     return out
 
 
-def exchange_probe(num_samples: int, device="cuda", threads: int = _THREADS, blocks: int = _BLOCKS) -> None:
-    """Launch the kernel with its distance update compiled out: K - 1 rounds
-    of the grid-wide exchange alone. Timed by the caller, this is the
-    latency floor of K sequential selections on the card. Not counted as a
-    kernel launch."""
+def exchange_probe(num_samples: int, clusters: int = 1, device="cuda") -> None:
+    """Launch the kernel with its points compiled out: K - 1 steps of the
+    exchange of ``clusters`` clusters alone (1: the cluster exchange; 2 or 3:
+    with the second level through device memory). Timed by the caller, this
+    is the latency floor of K sequential selections in this design. Not
+    counted as a kernel launch."""
     dev = torch.device(device)
     out = torch.empty(int(num_samples), dtype=torch.int32, device=dev)
-    slots = torch.zeros(_SLOTS, dtype=torch.int64, device=dev)
+    ctrl = torch.zeros(_CTRL_HEAD + CLUSTER * clusters, dtype=torch.int32, device=dev)
+    slots = torch.zeros(_SLOT_WORDS, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().fps_exchange_probe(int(num_samples), int(threads), int(blocks), out.data_ptr(), slots.data_ptr(),
-                                        _SLOTS, torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib().fps_exchange_probe(int(num_samples), int(clusters), ctrl.data_ptr(), slots.data_ptr(),
+                                        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fps exchange probe launch failed: cudaError {err}")
 
 
 def reset_launch_counts() -> None:
-    furthest_point_sample_cuda.launches = 0
-    furthest_point_sample_cuda.launches_by_shape = {}
+    fn = furthest_point_sample_cuda
+    fn.launches, fn.launches_by_shape = 0, {}
+    fn.last_args = fn.last_plan = fn.last_ctrl = None
 
 
 reset_launch_counts()

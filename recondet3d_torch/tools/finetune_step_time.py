@@ -78,7 +78,8 @@ def launch_costs():
     dims, stream = list(SHAPE[:3]) + [SHAPE[2]], torch.cuda.current_stream().cuda_stream
     two_floats = len(attention._ARGTYPES["flash_attn_bwd_dkv_bf16_d64"]) == 17
     calls = dict(fwd=("flash_attn_fwd_bf16_d64", (q, k, v, None, o, lse), [0.125]),
-                 dq=("flash_attn_bwd_dq_bf16_d64", (q, k, v, do, lse, delta, None, dq), [0.125]),
+                 dq=("flash_attn_bwd_dq_bf16_d64", (q, k, v, do, lse, delta, None, dq),
+                     [0.125] * (len(attention._ARGTYPES["flash_attn_bwd_dq_bf16_d64"]) - 13)),
                  dkv=("flash_attn_bwd_dkv_bf16_d64",
                       ((q,) if two_floats else ()) + (q, k, v, do, lse, delta, None, dk, dv),
                       [0.125] * (2 if two_floats else 1)))

@@ -226,3 +226,36 @@ def test_cuda_kernel_matches_plain(B, H, N, M, kv_len, scale, inputs):
         assert (lse[loud] - ref_lse[loud]).abs().max().item() <= 1e-6 * ref_lse[loud].abs().max().item()
     with pytest.raises(ValueError):
         flash_attention_fwd(q.float(), k.float(), v.float())
+
+
+# the fp32 kernel (the camera encoder's trunk) against fp32 attention_plain: relative L2 of out, and lse to
+# 1e-5 absolute (|lse| is a few units here); both are fp32 sums of the same terms in another order
+F32_REL_TOL, F32_LSE_TOL = 1e-5, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kv_len", [False, True])
+@pytest.mark.parametrize("D", [24, 48, 64, 96])
+@pytest.mark.parametrize("S", [1, 6, 37, 300])
+def test_cuda_fp32_kernel_matches_plain(S, D, use_kv_len):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from recondet3d_torch.ops.attention import attention_fwd_f32
+
+    B, H = 2, 16
+    rng = np.random.default_rng(S * 1000 + D)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).cuda() for _ in range(3))
+    kvl = torch.tensor([max(1, S // 2 - 1), S], dtype=torch.int32).cuda() if use_kv_len else None
+    reset_launch_counts()
+    out, lse = attention_fwd_f32(q, k, v, kvl)
+    got = flash_attention(q, k, v, kv_len=kvl)  # the dispatcher takes fp32 CUDA inputs to the same kernel
+    torch.cuda.synchronize()
+    assert attention_fwd_f32.launches == 2 and attention_fwd_f32.launches_by_shape == {(B, H, S, S, D): 2}
+    assert flash_attention_fwd.launches == 0
+    ref_out, ref_lse = attention_plain(q, k, v, kvl)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all() and torch.equal(got, out)
+    assert (torch.linalg.norm(out - ref_out) / torch.linalg.norm(ref_out)).item() <= F32_REL_TOL
+    assert (lse - ref_lse).abs().max().item() <= F32_LSE_TOL
+    leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+    with pytest.raises(NotImplementedError):  # no backward kernel for fp32
+        flash_attention(*leaves).sum().backward()

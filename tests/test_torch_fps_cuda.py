@@ -16,10 +16,13 @@ def t(a):
     return torch.from_numpy(np.array(a, order="C"))
 
 
+# (n, k, valid share, clusters the kernel must use): one cluster, a 393,216-row buffer whose valid points fit
+# one cluster, the same buffer all valid (two clusters), fewer valid points than K, none valid, a million rows
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k,valid_share", [(5000, 300, 0.7), (393216, 2000, 0.2), (64, 100, 0.5), (3000, 50, 0.0),
-                                                (1000000, 200, 1.0)])
-def test_fps_cuda_kernel_matches_plain(n, k, valid_share):
+@pytest.mark.parametrize("n,k,valid_share,clusters", [(5000, 300, 0.7, 1), (393216, 2000, 0.2, 1),
+                                                      (393216, 1500, 1.0, 2), (64, 100, 0.5, 1),
+                                                      (3000, 50, 0.0, 1), (1000000, 200, 1.0, 5)])
+def test_fps_cuda_kernel_matches_plain(n, k, valid_share, clusters):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the FPS kernel is CUDA only")
     from recondet3d_torch.ops.fps import furthest_point_sample_cuda, reset_launch_counts
@@ -31,6 +34,8 @@ def test_fps_cuda_kernel_matches_plain(n, k, valid_share):
     got = furthest_point_sample(pts, k, valid)
     torch.cuda.synchronize()
     assert furthest_point_sample_cuda.launches == 1
+    ctrl = furthest_point_sample_cuda.last_ctrl.tolist()
+    assert ctrl[2] == 16 and ctrl[3] == clusters  # the cluster size it ran with, the clusters it used
     ref = furthest_point_sample(pts, k, valid, impl="plain")
     assert furthest_point_sample_cuda.launches == 1
     assert torch.equal(got, ref)
@@ -38,7 +43,7 @@ def test_fps_cuda_kernel_matches_plain(n, k, valid_share):
 
 @pytest.mark.cuda
 def test_fps_cuda_kernel_refuses_what_it_cannot_hold():
-    """A cloud larger than the blocks' shared memory raises instead of falling
+    """A cloud larger than the clusters' shared memory raises instead of falling
     back; so does a tensor the kernel does not take."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the FPS kernel is CUDA only")
