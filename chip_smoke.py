@@ -31,7 +31,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6b. gt-pose the nested-giant-large net of phase 4 with GT poses (random w2c
             extrinsics and pinhole intrinsics from a seed), B=2 scenes x 6
             views x 900x1600: ``CameraEnc`` runs its four fp32 trunk blocks
-            (16 heads of 96) through the fp32 attention kernel, launches
+            (16 heads of 96) through the CUDA-core attention kernel, launches
             counted per shape; once more with the camera encoder's attention
             switched to the plain version: camera tokens and depth must
             agree. Before it, the fp32 kernel against its plain version at
@@ -39,6 +39,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
             (D = 64), timed on the device (``torch.profiler``) and on the
             host beside the plain version and SDPA on the same fp32 inputs,
             and one da3-large ``CameraEnc`` (kernel vs plain).
+6c. gt-pose-bwd ``build_da3("da3-large")`` unfrozen with GT poses, B=1 x 6
+            views x 900x1600, one forward and a backward into every
+            parameter: CameraEnc's four blocks on the CUDA-core forward, dq
+            and dk/dv kernels, the 24 bf16 trunk blocks on the wgmma ones
+            (launches counted: 48 forward, 24 dq, 24 dk/dv); CameraEnc's
+            parameter gradients against a run with its attention on the
+            plain version.
 7. fps      the furthest-point-sampling kernel vs its plain PyTorch
             version at the sizes the point path gives it, on the buffers
             that path produces for a rendered street scene; the index
@@ -46,6 +53,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
             version, the bound (bytes or fp32 operations), and the exchange
             floor: this design's exchange alone (one cluster, or two levels
             for the clusters a case uses) times K - 1.
+7b. fps-large the same at the sizes past the main path: the street scene's
+            846,720 rows without pre-reduce (5 clusters), 6 x 364 x 644 =
+            1,406,496 rows all valid (past what 7 clusters hold on chip: the
+            overflow path) and ``MAX_POINTS`` random rows (K cut to 4,096).
 8. resdet3d the whole main path: ``ResDet3D.simple_test`` on B=2 scenes x 6
             views x 900x1600 images, the point path driven by depth maps
             rendered from ``assets/bench_sample/reference_points.npz``
@@ -67,6 +78,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
             kernel, the plain version, the backward of
             ``scaled_dot_product_attention`` (a yardstick only), the bound
             and the exponentials' floor.
+11b. cc      the CUDA-core attention family (``csrc/attn_cuda_core.cu``):
+            forward, dq and dk/dv against the plain versions in fp32 at the
+            camera encoders' shapes and in bf16 at D in {32, 96, 128, 20} at
+            721 and 4,326 tokens; same bits run to run; times beside the
+            bound, the plain versions and SDPA. Then B*H = 65,552 > 65,535 for
+            the wgmma kernels (bf16 D=64) and for the CUDA-core family.
 12. finetune ``Trainer`` with ``frozen_patterns=()`` on
             ``build_resdet3d("da3-large", freeze_da3=False)``: fp32 master
             parameters, bf16 compute, every ViT block under checkpointing
@@ -85,13 +102,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
             ``Trainer`` with DA3 frozen; one warm-up and three steps; finite
             loss, no backward-kernel launch, no optimizer state for DA3, DA3
             parameters bit-identical afterwards.
+16. detection ``build_model_from_cfg(configs/resdet3d_centerhead.py)`` at full
+            width (nested-giant-large, no pre-reduce, the CenterHead's six
+            tasks): one warm-up and three B=2 requests through
+            ``simple_test`` + ``decode`` on the anchored depth, FPS and
+            flash launches counted; then one warm-up and three production
+            train steps (DA3 frozen) with the CenterHead and occupancy
+            losses on GT boxes from a seed; the head's parameters must move.
+17. bench    ``recondet3d_torch/tools/bench.py`` (bench.py's workload) on
+            the model of phase 4 (the one it builds), its JSON line as it
+            prints it; after phase 10b, before any step trains that model.
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
 ``scratch_tree/``) adds one phase after phase 7: the FPS kernel on this run's
-FPS cases and the dq kernel at the fine-tuning shapes, timed by
-``recondet3d_torch/tools/kernel_times.py`` in four processes, the earlier
-tree's and this tree's in turns (parent, change, change, parent).
+FPS cases, the dq kernel at the fine-tuning shapes, the fp32 attention
+forward at the camera encoders' shapes (device time) and five main-path
+requests, timed by ``recondet3d_torch/tools/kernel_times.py`` in four
+processes, the earlier tree's and this tree's in turns (parent, change,
+change, parent).
 
 Needs CUDA; exits non-zero without it (or without the rest of the repo).
 """
@@ -115,25 +144,32 @@ import torch.nn.functional as F
 
 from recondet3d_torch.data.anchor_scene import anchor_depth, rig_cam2lidar
 from recondet3d_torch.data.input_processor import compute_process_shape, process_tensor_batch
-from recondet3d_torch.data.pipelines.point_pipeline import ball_query_downsample, voxel_pre_reduce
-from recondet3d_torch.models.da3 import CameraEnc
+from recondet3d_torch.cli.train import build_model_from_cfg
+from recondet3d_torch.core.config import load_py_config
+from recondet3d_torch.data.pipelines.point_pipeline import (ball_query_downsample, filter_point_by_range,
+                                                            voxel_pre_reduce)
+from recondet3d_torch.models.da3 import CameraEnc, build_da3
 from recondet3d_torch.models.da3.layers import init_parameters_, set_attn_impl
 from recondet3d_torch.models.detect import build_resdet3d
 from recondet3d_torch.ops import fps as fps_ops
 from recondet3d_torch.models.detect import ReconstructionBackbone, ResDet3D
 from recondet3d_torch.ops.attention import (
+    attention_bwd_dkv_cuda_core,
+    attention_bwd_dq_cuda_core,
     attention_bwd_plain,
-    attention_fwd_f32,
+    attention_fwd_cuda_core,
     attention_plain,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_fwd,
+    kernel_variant,
     reset_launch_counts,
 )
 from recondet3d_torch.ops.build import BUILD_LOG, load_kernels
 from recondet3d_torch.ops.cell_sort import cell_sort
 from recondet3d_torch.ops.sampling import furthest_point_sample
+from recondet3d_torch.tools import bench as port_bench
 from recondet3d_torch.utils import stage_timer
 from recondet3d_torch.train import Trainer
 from recondet3d_torch.utils.geometry import depth_to_points_cam
@@ -166,7 +202,8 @@ SHAPES = {
     "vitl_local": (B * S, 16, 721, 721),
 }
 # (B, H, S, D) of the camera encoder's trunk attention: 16 heads of dim_out / 16, one token a view
-CAM_SHAPES = {"cam_enc_giant": (B, 16, S, 96), "cam_enc_large": (B, 16, S, 64)}
+# (nested-giant's in the GT-pose forward; da3-large's at B=1 in the GT-pose backward)
+CAM_SHAPES = {"cam_enc_giant": (B, 16, S, 96), "cam_enc_large_b1": (1, 16, S, 64)}
 # launches a forward must make at each: ViT-g 40 blocks, global from block 13 on
 # every odd block -> 26 local + 14 global; ViT-L 24 local
 EXPECTED_PER_FORWARD = {"vitg_local": 26, "vitg_global": 14, "vitl_local": 24}
@@ -205,9 +242,34 @@ TRAIN_FWD_SHAPES = dict(FT_SHAPES, vitg_local_b1=(TRAIN_B * S, 24, 721, 721),
 FT_DEPTH_HEAD_SCALE = 0.1
 MIN_POINTS = 1000  # a train step's scene must keep at least this many points, or max_depth is set from the depth
 
+# the CUDA-core attention family (csrc/attn_cuda_core.cu): every dtype and head dim the wgmma kernels do not take.
+# Its backward runs at CAM_SHAPES; bf16 at head dims no DA3 trunk has, at the trunks' token counts
+CC_BF16_CASES = {f"bf16_d{d}_n{n}": (1, 4, n, d) for d in (32, 96, 128, 20) for n in (721, S * 721)}
+# B*H = 65,552 > 65,535 (the most grid.y takes): one case for the wgmma kernels, one for the CUDA-core family
+MANY_HEADS = {"bf16_d64": (4097, 16, 64, 64), "f32_d24": (4097, 16, S, 24)}
+# The GT-pose backward: CameraEnc's parameter gradients with its attention on the kernels vs on the plain version,
+# everything else the same. The two differ by fp32 rounding (~1e-7) in the camera tokens, which then pass 24 bf16
+# ViT-L blocks forward and back, where one flipped bf16 rounding moves a value by ~4e-3: the in-situ feature
+# gate. A wrong dq or dk/dv kernel moves these gradients by ~1. Fixed before the first run on the card.
+POSE_GRAD_REL_TOL = FEAT_REL_TOL
+# FPS past the main path's sizes: the production anchors without pre-reduce (6 views of 280 x 504), process_res
+# 644 without pre-reduce (6 x 364 x 644: 14 rows a CTA past the on-chip capacity of 7 clusters), and the most rows
+# the kernel takes; K of the last cut to what the plain version finishes in seconds
+NO_PRE_REDUCE_ROWS, RES644_HW = S * 280 * 504, (364, 644)
+LARGEST_FPS_K = 4096
+DET_CONFIG = "configs/resdet3d_centerhead.py"
+PARENT_REQUESTS = 5  # main-path requests each process of the parent comparison times
+DET_TASKS = 6
+DET_GT_BOXES = 64  # GT boxes a training scene, from a seed, inside the head's range
+BENCH_ITERS = 3  # timed requests of the bench line
+
+
+START = time.perf_counter()
+
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase, the seconds since the script started (``t_s``) and ``kw``."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - START, **kw}), flush=True)
 
 
 def fail(msg):
@@ -419,47 +481,89 @@ def f32_bound_ms(shape):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_ms_per_call(fn, calls):
-    """Device time of one call of ``fn``: the summed durations of what it
-    runs on the card, read from ``torch.profiler`` over ``calls`` calls, so
-    the host's time between launches does not count."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+def device_ms(fns, calls):
+    """Device time of one call of each function in ``fns`` ({label:
+    function}) and, per label, the device time a call of each device event
+    name it ran ({label: {name: ms}}), from one ``torch.profiler`` session.
+    Each label's calls run in a range of that name and end in a
+    synchronize, and 2 ms pass between ranges; a device
+    event counts to the range whose stretch holds it, the stretches split
+    in the middle of those pauses, so an offset of up to 1 ms between the
+    host's and the device's clocks does not move an event. The host's time
+    between launches does not count."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
 
-    fn()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        fail("torch.profiler recorded no device time")
-    return us / 1e3 / calls
+        for label, fn in fns.items():
+            time.sleep(2e-3)
+            with record_function(label):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the ranges on the host's timeline (a range's annotation on the device timeline has its name too)
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.name in fns and e.device_type != cuda)
+    if [name for _, _, name in ranges] != list(fns):
+        fail(f"torch.profiler: ranges {ranges}, expected one of each of {list(fns)}")
+    splits = [(prev[1] + cur[0]) / 2 for prev, cur in zip(ranges, ranges[1:])]
+    by_name = {label: defaultdict(float) for label in fns}
+    for e in events:
+        if e.device_type != cuda or e.name in fns:
+            continue
+        owner = ranges[sum(t <= e.time_range.start for t in splits)][2]
+        by_name[owner][e.name] += e.device_time_total / 1e3 / calls
+    total = {label: sum(v.values()) for label, v in by_name.items()}
+    if not all(v > 0 for v in total.values()):
+        fail(f"torch.profiler recorded no device time for {total}")
+    return total, {label: dict(v) for label, v in by_name.items()}
 
 
 def f32_case(name, shape, seed, iters=100):
-    """The fp32 attention kernel against ``attention_plain`` (fp32) on one set
-    of fp32 inputs. At these shapes a call is launch-bound: ``ms``,
-    ``plain_ms`` and ``library_ms`` (SDPA on the same fp32 inputs) are device
-    time from the profiler, the ``host_*`` keys the time a call takes in a
-    loop of ``iters`` calls."""
+    """The fp32 (CUDA-core) attention forward against ``attention_plain``
+    (fp32) on one set of fp32 inputs. At these shapes a call is launch-bound:
+    ``ms``, ``dq_ms`` and ``dkv_ms`` (the backward kernels on the same
+    inputs), ``plain_ms`` and ``library_ms`` (the forward of SDPA on the same
+    fp32 inputs), ``plain_bwd_ms`` (``attention_bwd_plain``) and
+    ``library_bwd_ms`` (SDPA's backward alone: dq, dk and dv) are device
+    time from one profiler session; the ``*host_ms`` keys are the time a
+    call takes in a loop of ``iters`` calls."""
     rng = np.random.default_rng(seed)
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3))
-    out, lse = attention_fwd_f32(q, k, v)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
+    out, lse = attention_fwd_cuda_core(q, k, v)
     ref_out, ref_lse = attention_plain(q, k, v)
     rel, err = rel_l2(out, ref_out), (out - ref_out).abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     ok = rel <= F32_REL_TOL and err_lse <= F32_LSE_TOL and bool(torch.isfinite(out).all())
     b_ms, b_by = f32_bound_ms(shape)
-    calls = {"": lambda: attention_fwd_f32(q, k, v), "plain_": lambda: attention_plain(q, k, v),
-             "library_": lambda: F.scaled_dot_product_attention(q, k, v)}
-    times = {}
+    delta = (do * out).sum(dim=-1)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl)
+    calls = {"ms": lambda: attention_fwd_cuda_core(q, k, v),
+             "dq_ms": lambda: attention_bwd_dq_cuda_core(q, k, v, do, lse, delta),
+             "dkv_ms": lambda: attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta),
+             "plain_ms": lambda: attention_plain(q, k, v),
+             "library_ms": lambda: F.scaled_dot_product_attention(q, k, v),
+             "plain_bwd_ms": lambda: attention_bwd_plain(q, k, v, out, lse, do),
+             "library_bwd_ms": lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)}
+    times, by_name = device_ms(calls, iters)
+    # the kernel's own time is its event's, the whole call's (anything else the wrapper runs) under call_*
+    for key, kernel in (("ms", "cc_fwd_kernel"), ("dq_ms", "cc_bwd_dq_kernel"), ("dkv_ms", "cc_bwd_dkv_kernel")):
+        times[f"call_{key}"] = times[key]
+        times[key] = sum(v for n, v in by_name[key].items() if kernel in n)
+        if not times[key] > 0:
+            fail(f"{name}: no device event of {kernel} in its range: {by_name[key]}")
     for key, fn in calls.items():
-        times[f"{key}ms"] = device_ms_per_call(fn, iters)
-        times[f"{key}host_ms"] = time_ms(fn, iters)
+        times[key.replace("ms", "host_ms")] = time_ms(fn, iters)
+    del o_lib
     res = dict(name=name, shape=list(shape), max_abs_err=err, rel_l2_err=rel, max_abs_err_lse=err_lse,
                library_rel_l2=rel_l2(F.scaled_dot_product_attention(q, k, v), ref_out),
-               tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL), **times, bound_ms=b_ms, bound_by=b_by, ok=ok)
+               tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL), **times, device_ms_by_event=by_name,
+               bound_ms=b_ms, bound_by=b_by, ok=ok)
     emit("f32_kernel", **res)
     if not ok:
         fail(f"fp32 attention kernel disagrees with the plain version at {name}: rel L2 {rel}, lse {err_lse}")
@@ -501,7 +605,7 @@ def gt_pose_phase(model):
         got = model(x, **kw)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        launches = dict(attention_fwd_f32.launches_by_shape)
+        launches = dict(attention_fwd_cuda_core.launches_by_shape)
         tok = enc(ext, ixt, (x.shape[2], x.shape[3]))
         set_attn_impl(enc, "plain")
         ref = model(x, **kw)
@@ -545,9 +649,232 @@ def large_cam_enc_case():
     return err
 
 
+def elem_bytes(dtype):
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def cc_bounds(shape, M, dtype):
+    """Least times of the forward, dq and dk/dv on (B, H, N, D) queries over M
+    keys: the larger of 4, 6 and 8 * N * M * D operations a head at the
+    card's peak for the inputs' type (fp32 on the CUDA cores, bf16 on the
+    tensor cores) and the bytes each moves once (forward: q, k, v, out, lse;
+    dq: q, k, v, dO, lse, delta, dq; dk/dv: the same inputs, dk and dv)."""
+    Bq, H, N, D = shape
+    e, bh = elem_bytes(dtype), Bq * H
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    out = {}
+    for kind, ops, nbytes in (("fwd", 4, bh * ((2 * N + 2 * M) * D * e + 4 * N)),
+                              ("dq", 6, bh * ((3 * N + 2 * M) * D * e + 8 * N)),
+                              ("dkv", 8, bh * ((2 * N + 4 * M) * D * e + 8 * N))):
+        t_ops, t_bytes = ops * bh * N * M * D / peak, nbytes / PEAK_BYTES
+        out[kind] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def cc_gate(got, ref, dtype, scale=None):
+    """fp32: relative L2 against ``scale`` (default the reference's norm) <=
+    F32_REL_TOL; bf16: relative L2 <= the bf16 gate and |error| <= the
+    absolute gate times max(1, |value|) elementwise (a bf16 value carries a
+    rounding of up to 2^-9 of itself). Returns (ok, rel, max_abs)."""
+    got, ref = got.float(), ref.float()
+    err = got - ref
+    rel = (torch.linalg.norm(err) / (scale if scale is not None else torch.linalg.norm(ref))).item()
+    mx = err.abs().max().item()
+    if dtype == torch.float32:
+        return rel <= F32_REL_TOL, rel, mx
+    scaled = (err.abs() / ref.abs().clamp(min=1.0)).max().item()
+    return rel <= BWD_REL_TOL and scaled <= BWD_ABS_TOL, rel, mx
+
+
+def cc_case(name, shape, dtype, seed, iters=10):
+    """The CUDA-core forward, dq and dk/dv kernels against ``attention_plain``
+    (on the kernels' scores for bf16: bf16(q * scale) k^T) and
+    ``attention_bwd_plain`` on one set of inputs; same bits run to run; times
+    of each kernel in a loop of launches, the plain versions and SDPA
+    (forward, and its backward alone); device times at the launch-bound
+    camera-encoder shapes are ``f32_case``'s."""
+    Bq, H, N, D = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype) for _ in range(4))
+    if kernel_variant(dtype, D) != "cuda_core":
+        fail(f"{name}: {dtype} D={D} is not a CUDA-core case")
+    scale = D ** -0.5
+    reset_launch_counts()
+    out, lse = attention_fwd_cuda_core(q, k, v)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    launched = (attention_fwd_cuda_core.launches, attention_bwd_dq_cuda_core.launches,
+                attention_bwd_dkv_cuda_core.launches, flash_attention_bwd_dq.launches)
+    out2, lse2 = attention_fwd_cuda_core(q, k, v)
+    again = flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    same_bits = torch.equal(out, out2) and torch.equal(lse, lse2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    if dtype == torch.float32:
+        ref_out, ref_lse = attention_plain(q, k, v)
+    else:
+        qs = (q.float() * scale).to(dtype)
+        ref_out, ref_lse = attention_plain(qs.float(), k.float(), v.float(), None, 1.0)
+    ok_out, rel_out, err_out = cc_gate(out, ref_out, dtype)
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok_out = ok_out and err_lse <= (F32_LSE_TOL if dtype == torch.float32 else LSE_TOL)
+    ref = attention_bwd_plain(q, k, v, out, lse, do)
+    # the call's gradient scale: with few keys dq and dk can be rounding noise of dP - delta, which cancels
+    gscale = max(torch.linalg.norm(r.float()) for r in ref)
+    errs = {}
+    for key, a, r in zip(("dq", "dk", "dv"), got, ref):
+        ok, rl, mx = cc_gate(a, r, dtype, scale=gscale if dtype == torch.float32 else None)
+        errs[key] = dict(rel_l2=rl, max_abs=mx, ok=ok and bool(torch.isfinite(a).all()))
+    del ref, ref_out, ref_lse
+    ok = ok_out and all(e["ok"] for e in errs.values()) and same_bits and launched == (1, 1, 1, 0)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    calls = {"fwd": lambda: attention_fwd_cuda_core(q, k, v),
+             "dq": lambda: attention_bwd_dq_cuda_core(q, k, v, do, lse, delta),
+             "dkv": lambda: attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta)}
+    times = {kind: time_ms(fn, iters) for kind, fn in calls.items()}
+    plain_ms = time_ms(lambda: attention_bwd_plain(q, k, v, *attention_plain(q, k, v), do), 1, warmup=1)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl)
+    lib_bwd = min(time_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), iters)
+                  for _ in range(3))
+    del o_lib
+    bounds = cc_bounds(shape, N, dtype)
+    res = dict(name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
+        max_abs_err=max([err_out] + [e["max_abs"] for e in errs.values()]),
+        rel_l2_err=max([rel_out] + [e["rel_l2"] for e in errs.values()]),
+        max_abs_err_lse=err_lse, errors=errs, same_bits_run_to_run=same_bits, launches_fwd_dq_dkv_wgmma_dq=launched,
+        ms={k: times[k] for k in calls}, bound_ms={k: b[0] for k, b in bounds.items()},
+        bound_by={k: b[1] for k, b in bounds.items()}, plain_ms=plain_ms, library_ms=dict(fwd=lib_fwd, bwd=lib_bwd),
+        ok=ok)
+    emit("cc_kernel", **res)
+    if not ok:
+        fail(f"CUDA-core attention kernels disagree with the plain versions at {name}: out rel {rel_out} "
+             f"(abs {err_out}, lse {err_lse}), {errs}; same bits {same_bits}; launches {launched}")
+    return res
+
+
+def head_rel_l2(got, ref, scale=None):
+    """The largest relative L2 error of one head over (B, H, rows, D)
+    tensors, each head against its own ``scale`` (B, H) (default: the
+    reference head's norm). Over 65,552 heads a wrong head cannot hide in a
+    global norm, and an elementwise gate would trip on single bf16 roundings
+    of the rare values above 1 (one bf16 ulp there is 2^-7)."""
+    err = torch.linalg.vector_norm((got.float() - ref.float()).flatten(2), dim=-1)
+    den = torch.linalg.vector_norm(ref.float().flatten(2), dim=-1) if scale is None else scale
+    return (err / den).max().item()
+
+
+def many_heads_case(name, shape, dtype, seed):
+    """B*H = 65,552: the forward and both backward kernels of the variant the
+    dtype and D select, against the plain versions: the worst head's
+    relative L2 to the variant's relative gate (the backward against the
+    head's largest gradient norm)."""
+    Bq, H, N, D = shape
+    # 268 M values a tensor: drawn on the card (numpy takes ~20 s for the four)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    variant = kernel_variant(dtype, D)
+    fwd = flash_attention_fwd if variant == "bf16_d64" else attention_fwd_cuda_core
+    reset_launch_counts()
+    out, lse = fwd(q, k, v)
+    got = flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    kernels = (fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv) if variant == "bf16_d64" else \
+        (fwd, attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core)
+    launched = [w.launches for w in kernels]
+    if dtype == torch.float32:
+        ref_out = attention_plain(q, k, v)[0]
+    else:
+        ref_out = attention_plain((q.float() * D ** -0.5).to(dtype).float(), k.float(), v.float(), None, 1.0)[0]
+    tol = F32_REL_TOL if dtype == torch.float32 else BWD_REL_TOL
+    rel_out, err_out = head_rel_l2(out, ref_out), (out.float() - ref_out).abs().max().item()
+    ref = attention_bwd_plain(q, k, v, out, lse, do)
+    # each head's gradients against its largest gradient norm: with few keys dq and dk can be rounding noise of
+    # dP - delta, which cancels
+    hscale = torch.stack([torch.linalg.vector_norm(r.float().flatten(2), dim=-1) for r in ref]).amax(0)
+    errs = {key: dict(rel_l2=head_rel_l2(a, r, hscale), max_abs=(a.float() - r.float()).abs().max().item())
+            for key, a, r in zip(("dq", "dk", "dv"), got, ref)}
+    del ref, ref_out
+    ms = {kind: time_ms(fn, 5) for kind, fn in (
+        ("fwd", lambda: fwd(q, k, v)), ("bwd", lambda: flash_attention_bwd(q, k, v, out, lse, do)))}
+    ok = rel_out <= tol and all(e["rel_l2"] <= tol for e in errs.values()) and launched == [1, 1, 1]
+    res = dict(name=name, shape=list(shape), heads=Bq * H, variant=variant, worst_head_rel_l2_out=rel_out,
+               max_abs_err_out=err_out, errors=errs, tol=dict(worst_head_rel_l2=tol), launches=launched, ms=ms, ok=ok)
+    emit("many_heads", **res)
+    if not ok:
+        fail(f"B*H > 65535 case {name}: out rel {rel_out}, {errs}, launches {launched}")
+    return res
+
+
+def gt_pose_backward_phase():
+    """GT-pose conditioning trained: ``build_da3("da3-large")`` unfrozen (fp32
+    master parameters, blocks under checkpointing), B=1 scene x 6 views x
+    900x1600 with GT poses from a seed, one forward and a backward into every
+    parameter of a smooth scalar of the depth (``loss.backward()``, as a
+    fine-tuning step takes it). CameraEnc's four fp32 trunk blocks run the
+    CUDA-core forward, dq and dk/dv kernels, the 24 bf16 ViT-L blocks the
+    wgmma ones (each block's forward twice under checkpointing); then the
+    camera encoder's attention on the plain version, all else the same:
+    CameraEnc's parameter gradients must agree."""
+    model = build_da3("da3-large", dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(12), param_dtype=torch.float32, remat=True)
+    x, _ = process_tensor_batch(images(800)[:1], process_res=504)
+    ext, ixt = gt_poses(1, S, 801, x.shape[2], x.shape[3])
+    weights = torch.from_numpy(np.random.default_rng(802).standard_normal((1, S, 280, 504)).astype(np.float32)).cuda()
+    enc = model.cam_enc
+    names, params = zip(*enc.named_parameters())
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        out = model(x, extrinsics=ext, intrinsics=ixt, use_ray_pose=False, ref_view_strategy="first")
+        loss = (torch.log(out["depth"].float()) * weights).mean()
+        loss.backward()
+        return loss.item(), [p.grad.detach().clone() for p in params]
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_k, grads_k = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {w.__name__: dict(w.launches_by_shape) for w in (
+        attention_fwd_cuda_core, attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core, flash_attention_fwd,
+        flash_attention_bwd_dq, flash_attention_bwd_dkv)}
+    with_grad = sum(p.grad is not None for p in model.parameters())
+    set_attn_impl(enc, "plain")
+    loss_p, grads_p = run()
+    set_attn_impl(enc, "auto")
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
+    blocks = len(model.backbone.pretrained.blocks)
+    cam = (1, 16, S, S, 64)
+    expected = dict(attention_fwd_cuda_core={cam: CAM_BLOCKS}, attention_bwd_dq_cuda_core={cam: CAM_BLOCKS},
+                    attention_bwd_dkv_cuda_core={cam: CAM_BLOCKS})
+    counts = {k: sum(v.values()) for k, v in launches.items()}
+    res = dict(preset="da3-large", scenes=1, views=S, image=[IMG_H, IMG_W], ms=ms, loss_kernels=loss_k,
+               loss_plain=loss_p, cam_enc_grad_rel_l2_max=max(errs.values()), cam_enc_grad_rel_l2=errs,
+               tol=POSE_GRAD_REL_TOL, grads_finite=finite, trunk_blocks=blocks,
+               params_with_grad=with_grad, params=sum(1 for _ in model.parameters()),
+               launches_by_shape={k: {str(s): n for s, n in v.items()} for k, v in launches.items()})
+    emit("gt_pose_backward", **res)
+    for key, want in expected.items():
+        if launches[key] != want:
+            fail(f"gt-pose backward: {key} launches {launches[key]}, expected {want}")
+    if (counts["flash_attention_fwd"], counts["flash_attention_bwd_dq"], counts["flash_attention_bwd_dkv"]) != \
+            (2 * blocks, blocks, blocks):
+        fail(f"gt-pose backward: trunk launches {counts}, expected {(2 * blocks, blocks, blocks)}")
+    if not finite or not max(errs.values()) <= POSE_GRAD_REL_TOL:
+        fail(f"gt-pose backward: CameraEnc gradients kernel vs plain {errs} (finite {finite})")
+    del model
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def parent_comparison(parent, fps_cases):
-    """The FPS kernel on this run's FPS cases and the dq kernel at the
-    fine-tuning shapes, of the tree at ``parent`` and of this one, timed by
+    """The FPS kernel on this run's FPS cases, the dq kernel at the
+    fine-tuning shapes, the fp32 attention forward at the camera encoders'
+    shapes and PARENT_REQUESTS main-path requests, of the tree
+    at ``parent`` and of this one, timed by
     ``recondet3d_torch/tools/kernel_times.py`` in four processes in turns:
     parent, change, change, parent. Both trees must give the same FPS
     indices."""
@@ -560,8 +887,8 @@ def parent_comparison(parent, fps_cases):
                     for c in fps_cases for a in [c["kernel_args"]]], inputs)
         for tree, label in ((parent, "parent"), (here, "change"), (here, "change"), (parent, "parent")):
             tree = os.path.abspath(tree)
-            out = subprocess.run([sys.executable, tool, inputs], cwd=tree, capture_output=True, text=True, timeout=900,
-                                 env=dict(os.environ, PYTHONPATH=tree))
+            out = subprocess.run([sys.executable, tool, inputs, "--requests", str(PARENT_REQUESTS)], cwd=tree,
+                                 capture_output=True, text=True, timeout=900, env=dict(os.environ, PYTHONPATH=tree))
             if out.returncode != 0:
                 fail(f"kernel_times.py in {tree} failed ({out.returncode}): {out.stderr[-2000:]}")
             runs.append(dict(tree=label, **json.loads(out.stdout.strip().splitlines()[-1])))
@@ -614,6 +941,48 @@ def fps_phase(backbone, c2l, depth, exchange_us):
     small = torch.from_numpy(rng.uniform(-20, 20, (1000, 3)).astype(np.float32)).cuda()
     small_valid = torch.from_numpy(rng.random(1000) < 0.3).cuda()
     cases.append(fps_case("ragged_fewer_valid_than_k", small, small_valid, 500, None, exchange_us, False))
+    return cases
+
+
+def cloud_from_depth(depth, c2l):
+    """(N, 3) LiDAR-frame points of one scene's depth maps (1, S, h, w), the
+    rig's nominal pinhole at that size."""
+    h, w = depth.shape[-2:]
+    intr = torch.tensor([[1266.0 * w / IMG_W, 0, w / 2], [0, 1266.0 * h / IMG_H, h / 2], [0, 0, 1]], device="cuda")
+    pts_cam = depth_to_points_cam(depth, intr.expand(1, S, 3, 3))
+    pts = torch.einsum("bnhwc,bndc->bnhwd", pts_cam, c2l[:1, :, :3, :3]) + c2l[:1, :, 3, :3][:, :, None, None]
+    return pts.reshape(-1, 3).contiguous()
+
+
+def fps_large_phase(backbone, c2l, depth, exchange_us):
+    """FPS past the main path's sizes, each against the plain version: the
+    production anchors without pre-reduce (the street scene's valid rows of
+    6 x 280 x 504, range-filtered and cell-sorted as the point path does: 5
+    clusters launched, as many used as the valid rows need), 6 x 364 x 644 rows all valid (process_res 644: past what 7
+    clusters hold on chip, so the overflow path), and ``MAX_POINTS`` random
+    rows all valid with K cut to ``LARGEST_FPS_K``."""
+    d = depth[:1]
+    pts = cloud_from_depth(d, c2l)
+    msk = ((d > 0) & (d <= backbone.max_depth)).reshape(-1)
+    p, m = filter_point_by_range(pts, msk, backbone.filter_range)
+    cs = cell_sort(p, m, grid_dim=backbone.bq_grid_dim, min_cell=backbone.bq_max_radius)
+    cases = [fps_case("anchors_no_pre_reduce", p, m, ANCHORS, cs, exchange_us, False)]
+    _, _, ph, pw = compute_process_shape(IMG_H, IMG_W, RES644_HW[1])
+    d644 = torch.from_numpy(anchor_depth(np.load(REFERENCE_POINTS)["points"], c2l[:1].cpu().numpy(), ph, pw)).cuda()
+    rng = np.random.default_rng(13)
+    fill = torch.from_numpy(rng.uniform(2.0, 60.0, tuple(d644.shape)).astype(np.float32)).cuda()
+    p644 = cloud_from_depth(torch.where(d644 > 0, d644, fill), c2l)
+    cases.append(fps_case("all_valid_process_res_644", p644, torch.ones(p644.shape[0], dtype=torch.bool, device="cuda"),
+                          ANCHORS, None, exchange_us, False, iters=2))
+    n = fps_ops.MAX_POINTS
+    big = torch.from_numpy(np.concatenate([rng.uniform(-54, 54, (n, 2)), rng.uniform(-5, 3, (n, 1))], 1)
+                           .astype(np.float32)).cuda()
+    cases.append(fps_case("largest_n_all_valid", big, torch.ones(n, dtype=torch.bool, device="cuda"), LARGEST_FPS_K,
+                          None, exchange_us, False, iters=2))
+    if (tuple(RES644_HW) != (ph, pw) or cases[1]["N"] != S * ph * pw or cases[0]["N"] != NO_PRE_REDUCE_ROWS
+            or cases[0]["plan"]["clusters"] != 5
+            or not (cases[1]["plan"]["overflow"] and cases[2]["plan"]["overflow"])):
+        fail(f"fps large cases: sizes {[(c['N'], c['clusters_used'], c['plan']) for c in cases]}")
     return cases
 
 
@@ -806,7 +1175,119 @@ def fit_max_depth(model, batch, what):
         bq_sample_num=bk.bq_sample_num, bq_grid_dim=bk.bq_grid_dim, bq_share_sort=bk.bq_share_sort,
         num_points=bk.num_points, voxel_pre_reduce=bk.voxel_pre_reduce, pre_reduce_cap=bk.pre_reduce_cap,
         fps_impl=bk.fps_impl)
-    return ResDet3D(rebuilt), chosen
+    return ResDet3D(rebuilt, model.pts_bbox_head, model.class_names), chosen
+
+
+def det_train_batch(seed, head):
+    """``train_batch`` with GT boxes: DET_GT_BOXES boxes a scene from a seed,
+    centres inside the head's range, nuScenes-sized, labels over the ten
+    classes (a fifth of them padding, -1)."""
+    batch = train_batch(seed)
+    rng = np.random.default_rng(seed + 1)
+    pcr = head.point_cloud_range
+    n = (TRAIN_B, DET_GT_BOXES)
+    boxes = np.concatenate([rng.uniform(pcr[0] + 2, pcr[3] - 2, n + (1,)),
+                            rng.uniform(pcr[1] + 2, pcr[4] - 2, n + (1,)), rng.uniform(-2.0, 0.0, n + (1,)),
+                            rng.uniform(0.5, 5.0, n + (3,)), rng.uniform(-np.pi, np.pi, n + (1,)),
+                            rng.normal(size=n + (2,))], -1).astype(np.float32)
+    labels = rng.integers(0, 10, n)
+    labels[:, -DET_GT_BOXES // 5:] = -1
+    return dict(batch, gt_bboxes_3d=torch.from_numpy(boxes).cuda(), gt_labels_3d=torch.from_numpy(labels).cuda())
+
+
+def detection_phase(c2l, depth, fps_case_of, case_of, fwd_case_of):
+    """``configs/resdet3d_centerhead.py`` built by ``build_model_from_cfg`` at
+    full width (nested-giant-large, process_res 504, no pre-reduce, the
+    CenterHead's six tasks over the 256-channel BEV features), random weights
+    from a seed: one warm-up and REQUESTS B=2 requests through
+    ``simple_test`` and ``decode`` with the point path driven by the anchored
+    depth, FPS and flash launches counted; then one warm-up and TRAIN_STEPS
+    production train steps (DA3 frozen) with the CenterHead and occupancy
+    losses on GT boxes from a seed, the point path again on the anchored
+    depth."""
+    t0 = time.perf_counter()
+    cfg = load_py_config(DET_CONFIG)
+    det = build_model_from_cfg(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    head, bk = det.pts_bbox_head, det.reconstruction_backbone
+    if len(head.branches) != DET_TASKS or bk.voxel_pre_reduce != 0.0 or head.shared_conv.in_channels != 256:
+        fail(f"detection: the config built {len(head.branches)} tasks, pre-reduce {bk.voxel_pre_reduce}, "
+             f"head input {head.shared_conv.in_channels}")
+    det.simple_test(images(900), c2l, depth_override=depth)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fps_ops.reset_launch_counts()
+    times, decode_ms = [], []
+    for r in range(REQUESTS):
+        img = images(901 + r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = det.simple_test(img, c2l, depth_override=depth)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dets = head.decode(out["det_preds"], class_names=det.class_names)
+        times.append(1e3 * (t1 - t0))
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+    flash_by_shape = dict(flash_attention_fwd.launches_by_shape)
+    fps_by_shape = dict(fps_ops.furthest_point_sample_cuda.launches_by_shape)
+    preds = out["det_preds"]
+    grid = (B, 180, 180)
+    shapes_ok = len(preds) == DET_TASKS and all(
+        tuple(p["heatmap"].shape) == grid + (len(t),) and all(bool(torch.isfinite(v).all()) for v in p.values())
+        for p, t in zip(preds, head.tasks))
+    boxes_ok = len(dets) == B and all(np.isfinite(d["boxes_3d"]).all() and d["boxes_3d"].shape[1] == 9 for d in dets)
+    unchecked = [sh for sh in fps_by_shape if sh not in fps_case_of]
+    unchecked += [sh for sh in flash_by_shape if sh not in case_of]
+    fps_expected = {(NO_PRE_REDUCE_ROWS, ANCHORS): B * REQUESTS, (UNION_CAP_NO_PRE_REDUCE, NUM_POINTS): B * REQUESTS}
+    flash_expected = {SHAPES[name]: n * REQUESTS for name, n in EXPECTED_PER_FORWARD.items()}
+    ms_mean = float(np.mean(times))
+    res = dict(config=DET_CONFIG, tasks=[list(t) for t in head.tasks], build_s=build_s, requests=REQUESTS,
+               scenes_per_request=B, views=S, image=[IMG_H, IMG_W], ms_per_request=times, ms_mean=ms_mean,
+               camera_frames_per_s=B * S / (ms_mean / 1e3), decode_ms=decode_ms,
+               boxes_per_scene=[len(d["boxes_3d"]) for d in dets], valid_counts_per_scene=
+               {k: [int(c) for c in v] for k, v in bk.last_stage_counts.items()},
+               fps_launches_by_size={str(k): n for k, n in fps_by_shape.items()},
+               flash_launches_per_request=sum(flash_by_shape.values()) / REQUESTS,
+               heatmap_max=max(float(torch.sigmoid(p["heatmap"]).max()) for p in preds))
+    emit("detection", **res)
+    if not shapes_ok or not boxes_ok:
+        fail(f"detection: predictions of the wrong shape or non-finite ({shapes_ok}, {boxes_ok})")
+    if unchecked:
+        fail(f"detection: a kernel ran at sizes no case checked: {unchecked}")
+    if fps_by_shape != fps_expected or flash_by_shape != flash_expected:
+        fail(f"detection: fps launches {fps_by_shape} (expected {fps_expected}), flash {flash_by_shape}")
+
+    # forward_train takes no depth override, and the random nested net calls every pixel sky (an empty cloud,
+    # on which the head's input is zero and most of its gradients vanish): its depth is replaced by the anchored
+    # scene's after DA3 has run, as depth_override does in the requests
+    predict_depth = bk.predict_depth
+
+    def anchored_depth(img):
+        _, intr, da3_out = predict_depth(img)
+        return depth[:img.shape[0]], intr, da3_out
+
+    bk.predict_depth = anchored_depth
+    batch = det_train_batch(950, head)
+    trainer = Trainer(model=det, total_steps=1000, lr=1e-3)
+    watched = {n: p.detach().clone() for n, p in det.pts_bbox_head.named_parameters()}
+    _, tr, launches = run_train_steps("detection_train", det, trainer, batch, fps_case_of, fwd_case_of)
+    # a convolution's bias in front of a batch norm in train mode gets no gradient (the norm subtracts it again):
+    # every other parameter of the head must have moved
+    params = dict(det.pts_bbox_head.named_parameters())
+    still = {n: None if p.grad is None else float(p.grad.abs().max()) for n, p in params.items()
+             if torch.equal(p.detach(), watched[n])}
+    det_losses = sorted({k for h in tr.pop("history") for k in h if k.startswith("task")})
+    emit("detection_train", **tr, depth="anchored scene", head_params=len(watched),
+         head_params_moved=len(watched) - len(still), unmoved_with_largest_grad=still, detection_losses=det_losses)
+    if len(det_losses) != 2 * DET_TASKS or any(g for g in still.values()):
+        fail(f"detection train: losses {det_losses}, head parameters with a gradient that did not move {still}")
+    if launches["dq"] or launches["dkv"]:
+        fail(f"detection train: backward kernels launched with DA3 frozen: {launches}")
+    res["train"] = tr
+    del det, trainer, watched
+    torch.cuda.empty_cache()
+    return res, fps_by_shape
 
 
 def attention_blocks(model):
@@ -869,6 +1350,7 @@ def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
         da3_grad_norm_last_step=norm([g for n, g in grads.items() if ".da3." in n]),
         valid_counts_per_step=counts,
         launches_by_shape={k: {str(s): n for s, n in v.items()} for k, v in launches.items()},
+        history=[{k: v for k, v in h.items() if k.startswith("task")} for h in history],
         trained_params=sum(p.numel() for p in trainer.optimizer.params),
         optimizer_state_tensors=len(trainer.optimizer.mu) + len(trainer.optimizer.nu),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -876,6 +1358,7 @@ def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
 
 
 HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")  # on wgmma / TMA / mbarriers
+HOPPER_LIBS = ("flash_attn_fwd", "flash_attn_bwd")  # the sources of HOPPER_KERNELS
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "MUFU.EX2", "SYNCS")
 
 
@@ -939,14 +1422,16 @@ def main(argv=None):
     libs = load_kernels()
     build_s = time.perf_counter() - t0
     kernels = {}
+    t0 = time.perf_counter()
     for stem, entry in BUILD_LOG.items():
-        sass = instruction_counts(libs[stem]._name)
+        # the SASS gates hold only the wgmma kernels: the other libraries' SASS is not read
+        sass = instruction_counts(libs[stem]._name) if stem in HOPPER_LIBS else {}
         for fn, info in ptxas_report(entry["ptxas"]).items():
             short = next((k for k in sass if k in fn), fn)
             kernels[short] = dict(info, source=f"{stem}.cu", sass=sass.get(short, {}))
     warnings = {k: [l.strip() for l in v["ptxas"].splitlines() if "warning" in l.lower()] for k, v in BUILD_LOG.items()}
-    emit("build", seconds=build_s, nvcc_s={k: v["seconds"] for k, v in BUILD_LOG.items()}, kernels=kernels,
-         warnings=warnings)
+    emit("build", seconds=build_s, nvcc_s={k: v["seconds"] for k, v in BUILD_LOG.items()},
+         report_s=time.perf_counter() - t0, kernels=kernels, warnings=warnings)
     for name in HOPPER_KERNELS:
         info = kernels.get(name)
         if info is None or info.get("spill_stores", 1) or info.get("spill_loads", 1):
@@ -984,6 +1469,15 @@ def main(argv=None):
                  bwd_case("vitl_local_b1_scale_0.1", FT_SHAPES["vitl_local_b1"], None, seed=31, on_path=False,
                           scale=0.1)]
     bwd_case_of = {tuple(c["shape"]): c for c in bwd_cases.values()}
+
+    # 11b. the CUDA-core attention family: fp32 at the camera encoders' shapes (forward and backward; launch-bound,
+    # so device times too), bf16 at head dims no DA3 trunk has; then B*H > 65535 for both kernel families
+    cc_cam = {name: cc_case(name, shape, torch.float32, seed=60 + i, iters=50)
+              for i, (name, shape) in enumerate(CAM_SHAPES.items())}
+    cc_bf16 = [cc_case(name, shape, torch.bfloat16, seed=70 + i, iters=5) for i, (name, shape) in
+               enumerate(CC_BF16_CASES.items())]
+    many = [many_heads_case("many_heads_" + name, shape, torch.bfloat16 if name.startswith("bf16") else torch.float32,
+                            seed=80 + i) for i, (name, shape) in enumerate(MANY_HEADS.items())]
 
     # 4. the model of the main path
     t0 = time.perf_counter()
@@ -1060,17 +1554,24 @@ def main(argv=None):
     f32_cases = {name: f32_case(name, shape, seed=40 + i) for i, (name, shape) in enumerate(CAM_SHAPES.items())}
     cam_large_err = large_cam_enc_case()
     pose_res, f32_launches = gt_pose_phase(model)
+    # 6c. GT-pose conditioning trained: the fp32 backward kernels at full width
+    pose_bwd, pose_bwd_launches = gt_pose_backward_phase()
 
     # 7. fps kernel vs plain on the buffers of the point path
     c2l, depth = scene_inputs(B)
     # this design's exchange alone: one cluster, and the two levels of 2 and 3 clusters
     exchange_us = {c: 1e3 * time_ms(lambda: fps_ops.exchange_probe(ANCHORS, c), 3, warmup=1) / (ANCHORS - 1)
-                   for c in (1, 2, 3)}
+                   for c in (1, 2, 3, 5, 7)}
     emit("fps_exchange", rounds=ANCHORS - 1, us_per_round_by_clusters=exchange_us)
     fps_cases = fps_phase(backbone, c2l, depth, exchange_us)
     if args.parent:
         parent_comparison(args.parent, fps_cases)
     fps_case_of = {(c["N"], c["K"]): c for c in fps_cases if c["on_main_path"]}
+    # 7b. FPS past the main path's sizes: no pre-reduce, the overflow past 7 clusters, the most rows it takes
+    fps_large = fps_large_phase(backbone, c2l, depth, exchange_us)
+    # the detection config sets no pre-reduce: its anchors and final FPS run at these two sizes
+    det_fps_case_of = {(c["N"], c["K"]): c for c in fps_cases + fps_large
+                       if (c["N"], c["K"]) in ((NO_PRE_REDUCE_ROWS, ANCHORS), (UNION_CAP_NO_PRE_REDUCE, NUM_POINTS))}
 
     # 8. the whole main path: ResDet3D.simple_test
     torch.cuda.reset_peak_memory_stats()
@@ -1138,6 +1639,15 @@ def main(argv=None):
 
     # 10b. one sparse convolution's forward + backward on that request's map: gather form vs autograd's scatter-add
     sparse_conv_backward_cost(backbone.refinement, pts, msk)
+
+    # 17. the port's bench entry point (bench.py's workload), its JSON line as it prints it. Its model is phase
+    # 4's, which is the one bench.py builds (the same preset, sizes and seed 0), before any step trains it
+    bench_rec = port_bench.measure(resdet, port_bench.FULL, BENCH_ITERS, 0, torch.device("cuda"))
+    print(json.dumps(bench_rec), flush=True)
+    emit("bench", **bench_rec)
+    if not (np.isfinite(bench_rec["value"]) and bench_rec["value"] > 0 and bench_rec["mfu_pct"] is not None
+            and np.isfinite(bench_rec["mfu_pct"]) and bench_rec["mfu_pct"] > 0):
+        fail(f"bench: {bench_rec}")
 
     # 12. fine-tuning: Trainer.run -> ResDet3D.forward_train with gradients through DA3
     t0 = time.perf_counter()
@@ -1259,7 +1769,12 @@ def main(argv=None):
     emit("train_profile", **tr_profile,
          device_busy_share_of_unprofiled_step=tr_profile["device_busy_ms"] / tr_res["ms_mean"])
     prod.eval()
+    del trainer, prod
+    torch.cuda.empty_cache()
 
+    # 16. detection: configs/resdet3d_centerhead.py at full width, requests and production train steps
+    det_res, det_fps_by_shape = detection_phase(c2l, depth, det_fps_case_of, case_of,
+                                                dict(fwd_case_of))
     # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
@@ -1280,20 +1795,24 @@ def main(argv=None):
                  exp_floor_ms=mix["exp_floor_ms"], library_ms=mix["library_ms"], per="one request's launch mix (B=2)",
                  design="wgmma + TMA + mbarriers, warp-specialised",
                  shapes=[dict(c, launches_per_forward=per_forward[n]) for n, c in cases.items()]
-                 + [kvl_case, scale_case], train_shapes=list(train_fwd_cases.values())),
+                 + [kvl_case, scale_case], train_shapes=list(train_fwd_cases.values()),
+                 many_heads=[c for c in many if c["variant"] == "bf16_d64"]),
             dict(name="fps", route="cuda", source="recondet3d_torch/csrc/fps.cu",
                  replaces="recondet3d/ops/fps_pallas.py:54", status="ported+checked", launches=fps_total,
                  max_abs_err=max(c["max_abs_err"] for c in fps_cases),
                  ms=fps_mix["ms"], plain_ms=fps_mix["plain_ms"], bound_ms=fps_mix["bound_ms"],
                  bound_by=fps_by, exchange_floor_ms=fps_mix["exchange_floor_ms"], library_ms=None,
                  per="one request's launch mix (B=2: 4 launches)",
+                 launches_detection_requests=sum(det_fps_by_shape.values()),
                  design="clusters of 16 CTAs, records through distributed shared memory (st.async + mbarrier), "
-                        "points in registers; a second level through device memory for clouds beyond one cluster",
+                        "points in registers; a second level through device memory for clouds beyond one cluster; "
+                        "past the 1,404,928 points 7 clusters hold on chip, each CTA streams the rest of its share "
+                        "from device memory every selection (the overflow path)",
                  note="max_abs_err counts differing indices (gate: 0); bound = max(bytes, K*n_valid fp32 distance "
                       "updates); exchange_floor_ms = (K-1) steps of this design's exchange alone as timed in this "
                       "run; no single PyTorch call computes FPS, so library_ms is null",
                  exchange_us_per_round=exchange_us,
-                 shapes=[{k: v for k, v in c.items() if k != "kernel_args"} for c in fps_cases]),
+                 shapes=[{k: v for k, v in c.items() if k != "kernel_args"} for c in fps_cases + fps_large]),
         ],
         "not_yet_ported": [],
     }
@@ -1319,24 +1838,58 @@ def main(argv=None):
                          launches_per_step=per_step[kind].get(tuple(c["shape"]), 0), **c[kind],
                          plain_ms=c["plain_ms"], library_ms=c["library_ms"], errors=c["errors"])
                     for c in list(bwd_cases.values()) + bwd_extra]))
+    # the CUDA-core family: the forward on the GT-pose forward's launches (nested-giant, B=2: CameraEnc at D=96),
+    # dq and dk/dv on the GT-pose backward's (da3-large, B=1: D=64); ms, plain_ms and library_ms are device time
+    # from torch.profiler at these launch-bound shapes, the host_* keys the time a call takes in a loop of launches
+    cc_all = list(cc_cam.values()) + cc_bf16 + [c for c in many if c["variant"] == "cuda_core"]
+    cc_err = max(c["max_abs_err"] if "max_abs_err" in c else c["max_abs_err_out"] for c in cc_all)
     table["kernels"].append(dict(
-        name="attn_fwd_f32", route="cuda", source="recondet3d_torch/csrc/attn_f32.cu",
+        name="attn_cc_fwd", route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
         replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=sum(f32_launches.values()),
-        max_abs_err=max(c["max_abs_err"] for c in f32_cases.values()),
+        max_abs_err=max([cc_err] + [c["max_abs_err"] for c in f32_cases.values()]),
         **{key: sum(f32_cases["cam_enc_giant"][key] * n for n in f32_launches.values())
            for key in ("ms", "host_ms", "plain_ms", "plain_host_ms", "library_ms", "library_host_ms", "bound_ms")},
         bound_by=f32_cases["cam_enc_giant"]["bound_by"],
         per="one GT-pose forward of nested-giant-large (B=2: 4 launches at (2, 16, 6, 6) D=96)",
-        design="fp32 on the CUDA cores: one CTA per (b*h, 8 query rows), K/V tiles through shared memory, "
-               "one warp per query row, online softmax with expf",
-        note="the fp32 instance of _flash_kernel (CameraEnc's trunk); ms, plain_ms and library_ms (SDPA on the same "
-             "fp32 inputs) are device time from torch.profiler, the host_* keys the time a call takes in a loop of "
-             "launches",
-        cam_enc_large_token_rel_l2=cam_large_err, gt_pose=pose_res, shapes=list(f32_cases.values())))
+        design="CUDA cores, templated on fp32 / bf16 and ceil(D/32) output columns a lane: one CTA per (b*h, 8 query "
+               "rows), K/V tiles of 64 through shared memory, one warp per query row, online softmax with expf",
+        note="every _flash_kernel instance the wgmma kernel does not take (fp32 any D, bf16 D != 64, D <= 256); "
+             "ms, plain_ms and library_ms (SDPA on the same fp32 inputs) are device time from torch.profiler",
+        cam_enc_large_token_rel_l2=cam_large_err, gt_pose=pose_res, shapes=list(f32_cases.values()),
+        cc_cases=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"]["fwd"],
+                       bound_ms=c["bound_ms"]["fwd"],
+                       bound_by=c["bound_by"]["fwd"], library_ms=c["library_ms"]["fwd"])
+                  for c in list(cc_cam.values()) + cc_bf16]))
+    cam, cam_dev = cc_cam["cam_enc_large_b1"], f32_cases["cam_enc_large_b1"]
+    for kind, fn_name, line in (("dq", "attn_cc_bwd_dq", 185), ("dkv", "attn_cc_bwd_dkv", 231)):
+        n = sum(pose_bwd_launches[f"attention_bwd_{kind}_cuda_core"].values())
+        table["kernels"].append(dict(
+            name=fn_name, route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
+            replaces=f"recondet3d/ops/attention.py:{line}", status="ported+checked", launches=n,
+            max_abs_err=cc_err, ms=cam_dev[f"{kind}_ms"] * n, host_ms=cam_dev[f"{kind}_host_ms"] * n,
+            plain_ms=cam_dev["plain_bwd_ms"] * n, plain_host_ms=cam_dev["plain_bwd_host_ms"] * n,
+            bound_ms=cam["bound_ms"][kind] * n, bound_by=cam["bound_by"][kind],
+            library_ms=cam_dev["library_bwd_ms"] * n, library_host_ms=cam_dev["library_bwd_host_ms"] * n,
+            per="one GT-pose backward of da3-large (B=1: 4 launches at (1, 16, 6, 6) D=64)",
+            design="CUDA cores, templated like the forward: one warp per " + ("query" if kind == "dq" else "key")
+                   + " row, tiles of 32 " + ("keys" if kind == "dq" else "queries") + " through shared memory, "
+                   "no atomics (the same bits run to run)",
+            note="ms, plain_ms (attention_bwd_plain) and library_ms (SDPA's backward alone) are device time from one "
+                 "torch.profiler session on the same fp32 inputs, the *host_ms keys the time a call takes in a loop "
+                 "of calls; plain_ms and library_ms compute dq, dk and dv together: the same numbers stand in both "
+                 "rows; max_abs_err is over every CUDA-core case",
+            gt_pose_backward=pose_bwd,
+            shapes=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"][kind],
+                         device_ms=f32_cases[c["name"]][f"{kind}_ms"] if c["name"] in f32_cases else None,
+                         bound_ms=c["bound_ms"][kind],
+                         bound_by=c["bound_by"][kind], errors=c["errors"], plain_ms=c["plain_ms"],
+                         library_ms=c["library_ms"]["bwd"]) for c in list(cc_cam.values()) + cc_bf16],
+            many_heads=[c for c in many if c["variant"] == "cuda_core"]))
     table["kernels"][0]["launches_finetune_steps"] = sum(ft_launches["fwd"].values())
     table["kernels"][0]["launches_train_steps"] = sum(tr_launches["fwd"].values())
     table["kernels"][1]["launches_finetune_steps"] = sum(ft_launches["fps"].values())
     table["kernels"][1]["launches_train_steps"] = sum(tr_launches["fps"].values())
+    table["detection"] = det_res
     print(json.dumps(table), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

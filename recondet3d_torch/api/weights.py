@@ -23,7 +23,10 @@ a batch norm's ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight`` /
 ``BatchNorm_0`` level. A whole ResDet3D tree
 (``reconstruction_backbone/da3/...``, ``reconstruction_backbone/refinement/...``)
 maps to the port's ``reconstruction_backbone.da3.`` and
-``reconstruction_backbone.refinement.`` prefixes.
+``reconstruction_backbone.refinement.`` prefixes. The detection heads
+(``pts_bbox_head/...``) keep the flax module names too, with the same
+kernel layouts and batch-norm leaves; the CenterHead's ``task_<i>`` become
+``branches.<i>``.
 
 ``flax_from_named`` runs the other way: named tensors of the port (its
 parameters, their gradients, its batch statistics) come back under the
@@ -71,6 +74,7 @@ _REWRITES = [
     (re.compile(r"(^|/)(layer\d_rn|refinenet\d(?:_aux)?|output_conv1)/"), r"\1scratch.\2/"),
     (re.compile(r"(^|/)backbone_(\d+)/"), r"\1backbone.\2/"),
     (re.compile(r"(^|/)fc_fov_0/"), r"\1fc_fov.0/"),
+    (re.compile(r"(^|/)task_(\d+)/"), r"\1branches.\2/"),  # CenterHead's per-task branches
 ]
 
 _LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}

@@ -135,8 +135,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                         float scale) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(hopper::align_1024(smem_raw));
-  const int bh = blockIdx.y;
-  const int m0 = blockIdx.x * BLOCK_M;
+  const int tiles = (N + BLOCK_M - 1) / BLOCK_M;  // B*H folded into grid.x with the row tiles
+  const int bh = blockIdx.x / tiles;
+  const int m0 = (blockIdx.x % tiles) * BLOCK_M;
   const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
   const int n_tiles = (kv_lim + BLOCK_N - 1) / BLOCK_N;
   const int wg = threadIdx.x / 128;
@@ -182,7 +183,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
     const int c = lane % 4;
-    const int row0 = m0 + 64 * wg + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
+    const int rofs = 64 * wg + 16 * warp + lane / 4;  // this thread's rows in the CTA: rofs and rofs + 8
+    const int row0 = m0 + rofs;
     const float k_log2 = mul * LOG2E;
     float nl[2], dl[2];  // -lse * log2(e) and delta of the two rows, loaded once
 #pragma unroll
@@ -278,7 +280,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       fence_regs(acc);
       release(&sm.k_empty[sl]);
     }
-    hopper::store_acc_rows(dq + static_cast<size_t>(bh) * N * 64, acc, row0, N, c, scale);
+    // the CTA's head and rows afresh from blockIdx.x: held across the loop, bh and row0 spill 8 bytes
+    const unsigned cta = hopper::ctaid_x();
+    hopper::store_acc_rows(dq + static_cast<size_t>(cta / tiles) * N * 64, acc,
+                           static_cast<int>(cta % tiles) * BLOCK_M + rofs, N, c, scale);
   }
 }
 
@@ -293,7 +298,8 @@ int launch_dq(const void* qk, const void* k, const void* v, const void* dout, co
   static std::atomic<uint32_t> smem_allowed{0};
   err = hopper::allow_dynamic_smem(flash_bwd_dq_kernel, SMEM_BYTES, smem_allowed);
   if (err) return err;
-  const dim3 grid((N + BLOCK_M - 1) / BLOCK_M, B * H);
+  const unsigned grid = hopper::grid_1d(N, BLOCK_M, B * H);
+  if (!grid) return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_dq_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(kv_len), static_cast<bf16*>(dq), H, N, M, mul, scale);
@@ -365,8 +371,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                          bf16* __restrict__ dv, int H, int N, int M, float mul, float scale, int separate_qs) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(hopper::align_1024(smem_raw));
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BLOCK_K;
+  const int tiles = (M + BLOCK_K - 1) / BLOCK_K;  // B*H folded into grid.x with the key tiles
+  const int bh = blockIdx.x / tiles;
+  const int k0 = (blockIdx.x % tiles) * BLOCK_K;
   const size_t ko = static_cast<size_t>(bh) * M * 64;
   const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
 
@@ -522,7 +529,8 @@ extern "C" int flash_attn_bwd_dkv_bf16_d64(const void* q, const void* qs, const 
   static std::atomic<uint32_t> smem_allowed{0};
   err = hopper::allow_dynamic_smem(dkv::flash_bwd_dkv_kernel, dkv::SMEM_BYTES, smem_allowed);
   if (err) return err;
-  const dim3 grid((M + dkv::BLOCK_K - 1) / dkv::BLOCK_K, B * H);
+  const unsigned grid = hopper::grid_1d(M, dkv::BLOCK_K, B * H);
+  if (!grid) return static_cast<int>(cudaErrorInvalidValue);
   dkv::flash_bwd_dkv_kernel<<<grid, dkv::NTHREADS, dkv::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_qs, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(kv_len), static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv), H, N, M, mul, scale,

@@ -71,8 +71,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                      bf16* __restrict__ out, float* __restrict__ lse, int H, int N, int M, float mul) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(align_1024(smem_raw));
-  const int bh = blockIdx.y;
-  const int m0 = blockIdx.x * BLOCK_M;
+  // B*H is folded into grid.x with the row tiles (row tile fastest), so it has no 65,535 limit of grid.y
+  const int tiles = (N + BLOCK_M - 1) / BLOCK_M;
+  const int bh = blockIdx.x / tiles;
+  const int m0 = (blockIdx.x % tiles) * BLOCK_M;
   const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
   const int n_tiles = (kv_lim + BLOCK_N - 1) / BLOCK_N;
   const int wg = threadIdx.x / 128;
@@ -268,7 +270,8 @@ extern "C" int flash_attn_fwd_bf16_d64(const void* q, const void* k, const void*
   static std::atomic<uint32_t> smem_allowed{0};
   err = allow_dynamic_smem(flash_fwd_kernel, SMEM_BYTES, smem_allowed);
   if (err) return err;
-  const dim3 grid((N + BLOCK_M - 1) / BLOCK_M, B * H);
+  const unsigned grid = hopper::grid_1d(N, BLOCK_M, B * H);
+  if (!grid) return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, static_cast<const int*>(kv_len), static_cast<bf16*>(out), static_cast<float*>(lse), H, N, M,
       mul);

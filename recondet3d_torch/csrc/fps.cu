@@ -39,6 +39,14 @@
 //    the valid count (no read-back to the host): the launch has as many
 //    clusters as N could need, and the clusters that this cloud does not
 //    need exit after the load;
+//  - clouds beyond the shared memory of the clusters an H100 runs at once (7
+//    at a CTA's full shared memory): the launch has 7 clusters, and a CTA's
+//    share may run past what it holds on chip. The points past that stay in
+//    the staging buffer, their min-distances beside them in device memory
+//    (`odist`), and each selection streams them after the on-chip share. Their
+//    positions follow the on-chip ones, so the lowest position is still the
+//    lowest index. This path is compiled apart (kOverflow), so a cloud that
+//    fits on chip runs the kernel it ran before;
 //  - the load: every CTA counts the valid rows of an equal slice of the N
 //    rows, the counts meet in device memory (one grid-wide arrival counter),
 //    each CTA writes its valid rows in order to a staging buffer at their
@@ -82,8 +90,9 @@ constexpr int MAX_CLUSTERS = 7;                     // clusters an H100 runs at 
 constexpr int SMEM_FIXED = 2048;                    // bytes of dynamic shared memory before the points
 constexpr int SMEM_LIMIT = 232448;                  // a CTA's shared memory on an H100
 constexpr uint32_t REC_BYTES = 20;                  // one record: {key, ~index, x, y} + z
-constexpr int IDX_BITS = 22;                        // N < 2^22 - 1
-constexpr unsigned TAG_MASK = 1023u;                // 10-bit step tag of the second level's words
+constexpr int IDX_BITS = 23;                        // N < 2^23 - 1
+constexpr int TAG_BITS = 9;                         // {key 32, index 23, tag 9} in a 64-bit word
+constexpr unsigned TAG_MASK = (1u << TAG_BITS) - 1; // step tag of the second level's words
 constexpr int CTRL_HEAD = 4;                        // ctrl: [arrivals 1, arrivals 2, cluster size, clusters used, counts...]
 constexpr uint32_t MAX_POLLS = 1u << 28;
 
@@ -181,14 +190,17 @@ __device__ __forceinline__ void grid_arrive_wait(unsigned* counter) {
 
 // kWork = false compiles the points out: what is left is the exchange of
 // `clusters` clusters alone (probe: K - 1 steps, every record empty), timed
-// as the latency floor of one selection.
-template <bool kWork>
+// as the latency floor of one selection. kOverflow: a CTA's share may exceed
+// the `cta_cap` points it holds on chip (up to `share_cap`); the rest stream
+// from the staging buffer and `odist` on every selection.
+template <bool kWork, bool kOverflow>
 __global__ void __launch_bounds__(THREADS, 1)
     fps_kernel(const float* __restrict__ pts,      // (N, 3)
                const uint8_t* __restrict__ valid,  // (N,)
                const int* __restrict__ start,      // (1,) first selected index
-               int N, int K, int cta_cap, int smem_points,
+               int N, int K, int cta_cap, int share_cap, int smem_points,
                float4* __restrict__ staging,       // (N,) {x, y, z, index}: the valid rows in order
+               float* __restrict__ odist,          // (N,) min-distances of the points past the chip (kOverflow)
                unsigned* ctrl,                     // (CTRL_HEAD + gridDim.x,), zeroed by the caller
                unsigned long long* slots,          // (2, MAX_CLUSTERS, 4), zeroed by the caller
                int* __restrict__ out,              // (K,)
@@ -251,7 +263,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     grid_arrive_wait(&ctrl[1]);
     n_valid = fx.n_valid;
   }
-  const int clusters = kWork ? max(1, (n_valid + CLUSTER * cta_cap - 1) / (CLUSTER * cta_cap)) : probe_clusters;
+  // the clusters this cloud needs to hold its valid points on chip, at most the clusters launched (beyond: overflow)
+  const int launched = static_cast<int>(gridDim.x) / CLUSTER;
+  const int clusters =
+      kWork ? min(launched, max(1, (n_valid + CLUSTER * cta_cap - 1) / (CLUSTER * cta_cap))) : probe_clusters;
   if (blockIdx.x == 0 && tid == 0) {
     ctrl[2] = cluster_size();
     ctrl[3] = clusters;
@@ -262,6 +277,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int per = (max(n_valid, 1) + clusters * CLUSTER - 1) / (clusters * CLUSTER);
   const int lo = min(n_valid, static_cast<int>(cid * CLUSTER + rank) * per);
   const int n_mine = min(per, n_valid - lo);
+  const int n_chip = kOverflow ? min(n_mine, cta_cap) : n_mine;  // per <= cta_cap without overflow
   float x[REG_SLOTS], y[REG_SLOTS], z[REG_SLOTS], d[REG_SLOTS];
 #pragma unroll
   for (int j = 0; j < REG_SLOTS; ++j) {
@@ -269,11 +285,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     d[j] = -CUDART_INF_F;
   }
   if (kWork) {
-    for (int p = tid; p < n_mine; p += THREADS) sp[p] = __ldcg(&staging[lo + p]);
+    for (int p = tid; p < n_chip; p += THREADS) sp[p] = __ldcg(&staging[lo + p]);
 #pragma unroll
     for (int j = 0; j < REG_SLOTS; ++j) {
       const int p = j * THREADS + tid;
-      if (p < n_mine) {
+      if (p < n_chip) {
         const float4 q = __ldcg(&staging[lo + p]);
         x[j] = q.x;
         y[j] = q.y;
@@ -281,7 +297,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         d[j] = 1e10f;
       }
     }
-    for (int p = REG_POINTS + tid; p < n_mine; p += THREADS) sd[p - REG_POINTS] = 1e10f;
+    for (int p = REG_POINTS + tid; p < n_chip; p += THREADS) sd[p - REG_POINTS] = 1e10f;
+    if (kOverflow)
+      for (int p = cta_cap + tid; p < n_mine; p += THREADS) odist[lo + p] = 1e10f;
   }
 
   if (tid == 0) {
@@ -320,13 +338,25 @@ __global__ void __launch_bounds__(THREADS, 1)
           bp = j * THREADS + tid;
         }
       }
-      for (int p = REG_POINTS + tid; p < n_mine; p += THREADS) {
+      for (int p = REG_POINTS + tid; p < n_chip; p += THREADS) {
         const float4 q = sp[p];
         const float dn = fminf(sd[p - REG_POINTS], sq_dist(q.x, q.y, q.z, px, py, pz));
         sd[p - REG_POINTS] = dn;
         if (dn > bv) {
           bv = dn;
           bp = p;
+        }
+      }
+      if (kOverflow) {
+        // the share past the chip: read from the staging buffer, its min-distances (this thread's own) in odist
+        for (int p = cta_cap + tid; p < n_mine; p += THREADS) {
+          const float4 q = __ldcg(&staging[lo + p]);
+          const float dn = fminf(odist[lo + p], sq_dist(q.x, q.y, q.z, px, py, pz));
+          odist[lo + p] = dn;
+          if (dn > bv) {
+            bv = dn;
+            bp = p;
+          }
         }
       }
     }
@@ -344,7 +374,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       kmax = __reduce_max_sync(0xffffffffu, key);
       pmin = __reduce_min_sync(0xffffffffu, (lane < WARPS && key == kmax) ? fx.wpos[lane] : 0xffffffffu);
       float4 q = make_float4(0.f, 0.f, 0.f, __int_as_float(0));  // no point: index 0 at the origin
-      if (kmax != 0u) q = sp[pmin];
+      if (kmax != 0u) q = kOverflow && static_cast<int>(pmin) >= cta_cap ? __ldcg(&staging[lo + pmin]) : sp[pmin];
       if (lane < CLUSTER) {
         const uint4 a = make_uint4(kmax, ~static_cast<uint32_t>(__float_as_int(q.w)), __float_as_uint(q.x),
                                    __float_as_uint(q.y));
@@ -380,13 +410,13 @@ __global__ void __launch_bounds__(THREADS, 1)
           v[2] = (static_cast<unsigned long long>(__float_as_uint(by)) << 32) | tag;
           v[3] = (static_cast<unsigned long long>(__float_as_uint(bz)) << 32) | tag;
           v[0] = (static_cast<unsigned long long>(kmax) << 32) |
-                 (static_cast<unsigned long long>(idx & ((1u << IDX_BITS) - 1u)) << 10) | tag;
+                 (static_cast<unsigned long long>(idx & ((1u << IDX_BITS) - 1u)) << TAG_BITS) | tag;
         }
         unsigned long long w = 0ull;
         if (lane < 4 * clusters) w = poll_word(step + lane, tag);
         const bool head = lane < 4 * clusters && lane % 4 == 0;
         const uint32_t ck = head ? static_cast<uint32_t>(w >> 32) : 0u;
-        const uint32_t ci = head ? static_cast<uint32_t>(w >> 10) & ((1u << IDX_BITS) - 1u) : 0xffffffffu;
+        const uint32_t ci = head ? static_cast<uint32_t>(w >> TAG_BITS) & ((1u << IDX_BITS) - 1u) : 0xffffffffu;
         const uint32_t gk = __reduce_max_sync(0xffffffffu, ck);
         const uint32_t gi = __reduce_min_sync(0xffffffffu, (head && ck == gk) ? ci : 0xffffffffu);
         const int c4 = __ffs(__ballot_sync(0xffffffffu, head && ck == gk && ci == gi)) - 1;
@@ -413,16 +443,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   // no peer writes into this CTA's shared memory after the last step's records, which it has waited for
 }
 
-template <bool kWork>
+template <bool kWork, bool kOverflow>
 int launch(const float* pts, const uint8_t* valid, const int* start, int N, int K, int clusters, int cta_cap,
-           int smem_points, float4* staging, unsigned* ctrl, unsigned long long* slots, int* out,
-           cudaStream_t stream) {
-  if (K < 1 || clusters < 1 || clusters > MAX_CLUSTERS || cta_cap < 1 || smem_points < 0 ||
-      N < (kWork ? 1 : 0) || N >= (1 << IDX_BITS) - 1 || (kWork && cta_cap * CLUSTER * clusters < N))
+           int share_cap, int smem_points, float4* staging, float* odist, unsigned* ctrl, unsigned long long* slots,
+           int* out, cudaStream_t stream) {
+  if (K < 1 || clusters < 1 || clusters > MAX_CLUSTERS || cta_cap < 1 || share_cap < cta_cap || smem_points < 0 ||
+      N < (kWork ? 1 : 0) || N >= (1 << IDX_BITS) - 1 ||
+      (kWork && static_cast<long long>(share_cap) * CLUSTER * clusters < N) || (kOverflow && !odist))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = SMEM_FIXED + 16 * static_cast<size_t>(cta_cap) + 4 * static_cast<size_t>(smem_points);
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = fps_kernel<kWork>;
+  auto kern = fps_kernel<kWork, kOverflow>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -446,8 +477,8 @@ int launch(const float* pts, const uint8_t* valid, const int* start, int N, int 
   err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (active < clusters) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  err = cudaLaunchKernelEx(&cfg, kern, pts, valid, start, N, K, cta_cap, smem_points, staging, ctrl, slots, out,
-                           clusters);
+  err = cudaLaunchKernelEx(&cfg, kern, pts, valid, start, N, K, cta_cap, share_cap, smem_points, staging, odist, ctrl,
+                           slots, out, clusters);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -455,17 +486,24 @@ int launch(const float* pts, const uint8_t* valid, const int* start, int N, int 
 }  // namespace
 
 // pts (N, 3) fp32, valid (N,) bytes, start (1,) int32, out (K,) int32;
-// staging (N,) float4 scratch; ctrl (4 + 16 * clusters,) uint32 and slots
-// (2 * 7 * 4,) uint64 set to zero; clusters, cta_cap (points a CTA can hold)
-// and smem_points (of those, the points beyond the registers) as
-// ops/fps.py launch_plan gives them. After the launch ctrl[2] holds the
-// cluster size the kernel ran with and ctrl[3] the clusters it used.
-// Returns a cudaError_t (0 = launched).
+// staging (N,) float4 scratch; odist (N,) fp32 scratch (null unless
+// share_cap > cta_cap); ctrl (4 + 16 * clusters,) uint32 and slots
+// (2 * 7 * 4,) uint64 set to zero; clusters, cta_cap (points a CTA holds on
+// chip), share_cap (points a CTA may own, >= cta_cap) and smem_points (of the
+// on-chip points, those beyond the registers) as ops/fps.py launch_plan gives
+// them. After the launch ctrl[2] holds the cluster size the kernel ran with
+// and ctrl[3] the clusters it used. Returns a cudaError_t (0 = launched).
 extern "C" int fps_f32(const float* pts, const uint8_t* valid, const int* start, int N, int K, int clusters,
-                       int cta_cap, int smem_points, void* staging, unsigned* ctrl, unsigned long long* slots,
-                       int* out, void* stream) {
-  return launch<true>(pts, valid, start, N, K, clusters, cta_cap, smem_points, static_cast<float4*>(staging), ctrl,
-                      slots, out, static_cast<cudaStream_t>(stream));
+                       int cta_cap, int share_cap, int smem_points, void* staging, void* odist, unsigned* ctrl,
+                       unsigned long long* slots, int* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float4* st = static_cast<float4*>(staging);
+  float* od = static_cast<float*>(odist);
+  if (share_cap > cta_cap)
+    return launch<true, true>(pts, valid, start, N, K, clusters, cta_cap, share_cap, smem_points, st, od, ctrl, slots,
+                              out, s);
+  return launch<true, false>(pts, valid, start, N, K, clusters, cta_cap, share_cap, smem_points, st, od, ctrl, slots,
+                             out, s);
 }
 
 // The same launch with the points compiled out: K - 1 steps of the exchange of
@@ -473,6 +511,6 @@ extern "C" int fps_f32(const float* pts, const uint8_t* valid, const int* start,
 // level) and nothing else. ctrl, slots and out as above (out is scratch).
 extern "C" int fps_exchange_probe(int K, int clusters, unsigned* ctrl, unsigned long long* slots, int* out,
                                   void* stream) {
-  return launch<false>(nullptr, nullptr, nullptr, 0, K, clusters, 1, 0, nullptr, ctrl, slots, out,
-                       static_cast<cudaStream_t>(stream));
+  return launch<false, false>(nullptr, nullptr, nullptr, 0, K, clusters, 1, 1, 0, nullptr, nullptr, ctrl, slots, out,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -86,7 +86,22 @@ static int allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<uint32_t>& d
   return static_cast<int>(err);
 }
 
+// the one-dimensional grid of ceil(rows / tile) tiles for each of `heads` heads (B*H folded into grid.x,
+// the tile index fastest, so there is no 65,535 limit of grid.y); 0 if it exceeds grid.x's 2^31 - 1
+static unsigned grid_1d(int rows, int tile, int heads) {
+  const long long n = static_cast<long long>((rows + tile - 1) / tile) * heads;
+  return n >= 1 && n <= 0x7fffffffLL ? static_cast<unsigned>(n) : 0u;
+}
+
 // -------------------------------------------------------------- device side
+
+// blockIdx.x read afresh: a value the compiler may not keep live across a kernel's main loop (an epilogue
+// that needs its CTA's place recomputes it from here instead of holding registers that would spill)
+__device__ __forceinline__ unsigned ctaid_x() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(r));
+  return r;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

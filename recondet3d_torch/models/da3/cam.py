@@ -4,8 +4,9 @@ Both run fp32. ``CameraEnc`` turns GT poses into conditioning tokens
 (9-D encoding -> MLP -> 4 transformer blocks); it runs only when the caller
 passes GT extrinsics, which the main path does not. Its trunk attention is
 fp32 with head dim dim_out / 16 (24 at small, 96 at giant scale) over one
-token a view: on CUDA it runs the fp32 attention kernel
-(``ops/attention.py`` ``attention_fwd_f32``), on the CPU the plain version.
+token a view: on CUDA it runs the CUDA-core attention kernels, forward and
+backward (``ops/attention.py`` ``attention_fwd_cuda_core`` and its dq and
+dk/dv), on the CPU the plain versions.
 """
 
 from __future__ import annotations

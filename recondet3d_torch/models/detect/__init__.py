@@ -1,4 +1,4 @@
-"""Detectors of the port and ``build_resdet3d``."""
+"""Detectors and detection heads of the port, and ``build_resdet3d``."""
 
 from __future__ import annotations
 
@@ -7,12 +7,14 @@ from typing import Optional
 import torch
 
 from recondet3d_torch.models.da3 import build_da3
+from recondet3d_torch.models.detect.anchor3d_head import Anchor3DHead
+from recondet3d_torch.models.detect.centerhead import CenterHead
 from recondet3d_torch.models.detect.reconstruction_backbone import ReconstructionBackbone
 from recondet3d_torch.models.detect.resdet3d import ResDet3D
 from recondet3d_torch.models.refine.refinement import SparseRefinement, init_refinement_parameters_
 from recondet3d_torch.utils.device import resolve_device
 
-__all__ = ["ReconstructionBackbone", "ResDet3D", "build_resdet3d"]
+__all__ = ["ReconstructionBackbone", "ResDet3D", "CenterHead", "Anchor3DHead", "build_resdet3d"]
 
 
 def build_resdet3d(preset: str = "da3nested-giant-large", dtype=torch.bfloat16, device="cuda",

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from recondet3d_torch.utils.interpolation import interpolate_nchw
 
-__all__ = ["BEVHeightOccupancy"]
+__all__ = ["BEVHeightOccupancy", "FlaxBatchNorm2d"]
 
 
 class _Conv(nn.Conv2d):
@@ -37,17 +37,16 @@ class _Conv(nn.Conv2d):
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
 
 
-class _BN(nn.Module):
-    """Batch norm over NCHW in fp32 (eps 1e-3). Eval mode: the running
-    statistics. Train mode: the batch mean and biased variance, and
-    ``running = momentum * running + (1 - momentum) * batch`` with the flax
-    momentum 0.99 and, as in flax, the biased variance (``F.batch_norm``
-    would move ``running_var`` towards the unbiased one)."""
+class FlaxBatchNorm2d(nn.Module):
+    """Batch norm over NCHW in fp32, as flax's ``nn.BatchNorm`` (the U-Net's:
+    eps 1e-3, momentum 0.99). Eval mode: the running statistics. Train mode:
+    the batch mean and biased variance, and ``running = momentum * running +
+    (1 - momentum) * batch`` with, as in flax, the biased variance
+    (``F.batch_norm`` would move ``running_var`` towards the unbiased one)."""
 
-    momentum = 0.99
-
-    def __init__(self, channels, device=None):
+    def __init__(self, channels, device=None, momentum: float = 0.99, eps: float = 1e-3):
         super().__init__()
+        self.momentum, self.eps = momentum, eps
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
@@ -57,12 +56,12 @@ class _BN(nn.Module):
         x = x.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                                training=False, eps=1e-3)
+                                training=False, eps=self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=1e-3)
+        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
 
 
 class _ChannelAttention(nn.Module):
@@ -105,13 +104,13 @@ class BEVHeightOccupancy(nn.Module):
             in_ch, out_ch = ch[i], ch[i + 1]
             if i == 0:
                 setattr(self, f"enc{i}_conv1", conv(in_ch, in_ch, 3, padding=1))
-                setattr(self, f"enc{i}_bn1", _BN(in_ch, device))
+                setattr(self, f"enc{i}_bn1", FlaxBatchNorm2d(in_ch, device))
                 setattr(self, f"enc{i}_conv2", conv(in_ch, out_ch, 3, padding=1))
             else:
                 setattr(self, f"enc{i}_conv1", conv(in_ch, out_ch, 3, stride=2, padding=1))
-                setattr(self, f"enc{i}_bn1", _BN(out_ch, device))
+                setattr(self, f"enc{i}_bn1", FlaxBatchNorm2d(out_ch, device))
                 setattr(self, f"enc{i}_conv2", conv(out_ch, out_ch, 3, padding=1))
-            setattr(self, f"enc{i}_bn2", _BN(out_ch, device))
+            setattr(self, f"enc{i}_bn2", FlaxBatchNorm2d(out_ch, device))
             if use_attention:
                 setattr(self, f"attn{i}", _ChannelAttention(out_ch, dtype, device))
         cur = ch[-1]
@@ -122,9 +121,9 @@ class BEVHeightOccupancy(nn.Module):
                 cur += ch[len(ch) - (i + 1)]  # the skip: enc_feats[len - (i + 1)] has ch[len - (i + 1)] channels
                 out_ch = ch[-(i + 2)]
             setattr(self, f"dec{i}_conv1", conv(cur, out_ch, 3, padding=1))
-            setattr(self, f"dec{i}_bn1", _BN(out_ch, device))
+            setattr(self, f"dec{i}_bn1", FlaxBatchNorm2d(out_ch, device))
             setattr(self, f"dec{i}_conv2", conv(out_ch, out_ch, 3, padding=1))
-            setattr(self, f"dec{i}_bn2", _BN(out_ch, device))
+            setattr(self, f"dec{i}_bn2", FlaxBatchNorm2d(out_ch, device))
             cur = out_ch
 
         target = int(occ_feature_shape[2])
@@ -133,7 +132,7 @@ class BEVHeightOccupancy(nn.Module):
         while more(cur):
             nxt = max(cur // 2, target)
             setattr(self, f"occ_head{k}_conv", conv(cur, nxt, 1))
-            setattr(self, f"occ_head{k}_bn", _BN(nxt, device))
+            setattr(self, f"occ_head{k}_bn", FlaxBatchNorm2d(nxt, device))
             cur, k = nxt, k + 1
         self.n_head = k
         self.occ_head_final = None

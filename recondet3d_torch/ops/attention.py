@@ -51,12 +51,23 @@ return lse) and ``attention_bwd_plain`` (explicit formulae with the kernels'
 roundings, no autograd) are the kernels' plain versions: the CPU path and
 the reference the kernels are checked against on the card.
 
-fp32. The JAX package runs ``_flash_kernel`` in fp32 for the camera
-encoder's trunk (GT-pose conditioning: 16 heads of dim_out / 16, D = 24 to
-96, one token a view). ``attention_fwd_f32`` (``csrc/attn_f32.cu``) is that
-instance: fp32 products on the CUDA cores (no TF32), online softmax with
-``expf``, out and lse as ``attention_plain`` gives them. Its backward is not
-ported (no path of the port differentiates through it).
+Every other dtype and head dim. The JAX package runs ``_flash_kernel`` and
+its backward at any D, and in fp32 for the camera encoder's trunk
+(GT-pose conditioning: 16 heads of dim_out / 16, D = 24 to 96, one token a
+view). ``csrc/attn_cuda_core.cu`` holds those instances: a forward, a dq
+and a dk/dv kernel on the CUDA cores (fp32 products, no TF32), templated on
+the element type (fp32, bf16) and taking any D from 1 to 256, with the
+roundings of the plain versions (for bf16 inputs qs, P and dS rounded to
+bf16 before the second products).
+
+Which kernel a CUDA call runs is decided by dtype and head dim alone
+(``kernel_variant``): bf16 with D = 64 (every DA3 trunk) goes to the wgmma
+kernels, fp32 and bf16 with any other D up to 256 to the CUDA-core family,
+and anything else (fp16, fp64, D > 256; no config of either package builds
+them) raises. This is routing by shape, not a fallback: a bf16 D = 64 call
+never reaches the CUDA-core kernels, and no call on a CUDA tensor reaches a
+plain version. Every kernel folds B*H into grid.x with its row tiles, so
+B*H has no limit of its own.
 """
 
 from __future__ import annotations
@@ -74,9 +85,11 @@ __all__ = [
     "attention_plain",
     "attention_bwd_plain",
     "flash_attention_fwd",
-    "attention_fwd_f32",
+    "attention_fwd",
+    "attention_fwd_cuda_core",
+    "attention_bwd_dq_cuda_core",
+    "attention_bwd_dkv_cuda_core",
     "kernel_variant",
-    "check_backward_supported",
     "flash_attention_bwd",
     "flash_attention_bwd_dq",
     "flash_attention_bwd_dkv",
@@ -87,7 +100,8 @@ __all__ = [
 
 _NEG_INF = -1e30
 _HEAD_DIM = 64
-_F32_MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # the CUDA-core kernels' limit (the JAX kernels take any D; no preset goes past 96)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_plain(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,78 +157,102 @@ def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "attn_fwd_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
-    "flash_attn_fwd_bf16_d64": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
-    "flash_attn_bwd_dq_bf16_d64": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p],
-    "flash_attn_bwd_dkv_bf16_d64": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-    + [ctypes.c_void_p],
+    "flash_attn_fwd_bf16_d64": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "flash_attn_bwd_dq_bf16_d64": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
+    "flash_attn_bwd_dkv_bf16_d64": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
+    "attn_cc_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "attn_cc_bwd_dq": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
+    "attn_cc_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
 }
+_LIBRARY = {"flash_attn_fwd_bf16_d64": "flash_attn_fwd", "flash_attn_bwd_dq_bf16_d64": "flash_attn_bwd",
+            "flash_attn_bwd_dkv_bf16_d64": "flash_attn_bwd", "attn_cc_fwd": "attn_cuda_core",
+            "attn_cc_bwd_dq": "attn_cuda_core", "attn_cc_bwd_dkv": "attn_cuda_core"}
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(name: str):
     from recondet3d_torch.ops.build import load_kernels
 
-    library = {"flash_attn_fwd_bf16_d64": "flash_attn_fwd", "attn_fwd_f32": "attn_f32"}.get(name, "flash_attn_bwd")
-    fn = getattr(load_kernels()[library], name)
+    fn = getattr(load_kernels()[_LIBRARY[name]], name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_inputs(what: str, q, k, v, kv_len, scale, like_q=(), row_stats=()):
-    """The kernels take bf16, D = 64, contiguous 16-byte aligned (B, H, N, D)
-    tensors on one CUDA device; anything else raises. ``like_q``: (name,
-    tensor) pairs that must match q in shape and dtype; ``row_stats``:
-    (name, tensor) pairs that must be fp32 (B, H, N). Returns (B, H, N, M,
-    kv_len as int32 or None, scale as float)."""
+def _check_kernel_inputs(what: str, variant: str, q, k, v, kv_len, scale, like_q=(), row_stats=()):
+    """``variant`` 'bf16_d64' takes bf16, D = 64, contiguous 16-byte aligned
+    (B, H, N, D) tensors; 'cuda_core' fp32 or bf16 with any D up to
+    ``MAX_HEAD_DIM``, contiguous. All on one CUDA device; anything else
+    raises. ``like_q``: (name, tensor) pairs that must match q in shape and
+    dtype; ``row_stats``: (name, tensor) pairs that must be fp32 (B, H, N).
+    Returns (B, H, N, M, D, kv_len as int32 or None, scale as float)."""
     if any(t.device != q.device for t in (k, v)) or q.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {q.device}/{k.device}/{v.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{what} kernel takes bf16; {name} is {t.dtype}")
-        if t.dim() != 4 or t.shape[-1] != _HEAD_DIM:
-            raise ValueError(f"{what} kernel takes (B, H, N, {_HEAD_DIM}); {name} is {tuple(t.shape)}")
+        if t.dim() != 4 or t.dtype != q.dtype:
+            raise ValueError(f"{what} takes (B, H, N, D) tensors of one dtype; {name} is {t.dtype} {tuple(t.shape)}")
+    if variant == "bf16_d64" and (q.dtype != torch.bfloat16 or q.shape[-1] != _HEAD_DIM):
+        raise ValueError(f"{what} kernel takes bf16 (B, H, N, {_HEAD_DIM}); q is {q.dtype} {tuple(q.shape)}")
+    if variant == "cuda_core" and (q.dtype not in _DTYPE_CODE or not 1 <= q.shape[-1] <= MAX_HEAD_DIM):
+        raise ValueError(f"{what} kernel takes fp32 or bf16 with D <= {MAX_HEAD_DIM}; q is {q.dtype} "
+                         f"{tuple(q.shape)}")
     B, H, N, D = q.shape
     M = k.shape[2]
     if k.shape != (B, H, M, D) or v.shape != k.shape:
         raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if N == 0 or M == 0 or B * H > 65535:
-        raise ValueError(f"{what}: unsupported shape {tuple(q.shape)}")
-    more = [(n, t, q.shape, torch.bfloat16) for n, t in like_q] + \
+    if N == 0 or M == 0 or B * H == 0:
+        raise ValueError(f"{what}: empty shape {tuple(q.shape)}")
+    more = [(n, t, q.shape, q.dtype) for n, t in like_q] + \
            [(n, t, (B, H, N), torch.float32) for n, t in row_stats]
     for name, t, shape, dtype in more:
         if t.device != q.device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what} kernel takes {name} as {dtype} {tuple(shape)} on {q.device}; "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    align = 16 if variant == "bf16_d64" else 1
     for name, t in [("q", q), ("k", k), ("v", v)] + [(n, t) for n, t, _, _ in more]:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{what} kernel takes contiguous 16-byte aligned tensors; {name} is not")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{what} kernel takes contiguous {align}-byte aligned tensors; {name} is not")
     if kv_len is not None:
         if kv_len.shape != (B,) or kv_len.device != q.device:
             raise ValueError(f"kv_len must be ({B},) on {q.device}; got {tuple(kv_len.shape)} on {kv_len.device}")
         kv_len = kv_len.to(torch.int32).contiguous()
-    return B, H, N, M, kv_len, D ** -0.5 if scale is None else float(scale)
+    return B, H, N, M, D, kv_len, D ** -0.5 if scale is None else float(scale)
 
 
-def _launch(wrapper, name: str, tensors, shape, floats, device):
+def _launch(wrapper, name: str, tensors, ints, floats, device, key):
     """Launch kernel ``name`` on PyTorch's current stream with ``tensors``
-    (None = a null pointer), the int arguments ``shape`` ((B, H, N, M), and
-    D for the fp32 kernel) and the fp32 arguments ``floats``;
-    raises if the launch is refused and adds one to ``wrapper``'s counts."""
+    (None = a null pointer), the int arguments ``ints`` and the fp32
+    arguments ``floats``; raises if the launch is refused and adds one to
+    ``wrapper.launches`` and to ``wrapper.launches_by_shape[key]``."""
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = _kernel_fn(name)(*(None if t is None else t.data_ptr() for t in tensors), *shape, *floats, stream)
+        err = _kernel_fn(name)(*(None if t is None else t.data_ptr() for t in tensors), *ints, *floats, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1
-    wrapper.launches_by_shape[shape] = wrapper.launches_by_shape.get(shape, 0) + 1
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+
+
+def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernels that take CUDA inputs of this dtype and head dim:
+    'bf16_d64' (``csrc/flash_attn_fwd.cu`` and ``flash_attn_bwd.cu``, wgmma:
+    bf16 with D = 64, every DA3 trunk) or 'cuda_core'
+    (``csrc/attn_cuda_core.cu``: fp32 with any D from 1 to 256, bf16 with any
+    other D up to 256; the camera encoder's trunk is fp32). Raises
+    ValueError for anything else (fp16, fp64, D > 256)."""
+    if dtype == torch.bfloat16 and head_dim == _HEAD_DIM:
+        return "bf16_d64"
+    if dtype in _DTYPE_CODE and 1 <= head_dim <= MAX_HEAD_DIM:
+        return "cuda_core"
+    raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: fp32 and bf16 take D from 1 "
+                     f"to {MAX_HEAD_DIM}")
 
 
 def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash-attention forward: (out (B, H, N, D), lse (B, H, N) fp32).
+    """Flash-attention forward on the wgmma kernel: (out (B, H, N, D), lse
+    (B, H, N) fp32).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
     which takes bf16, D = 64 and contiguous (B, H, N, D) inputs; anything
@@ -225,125 +263,147 @@ def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor,
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
-    B, H, N, M, kv_len, scale = _check_kernel_inputs("flash_attention_fwd", q, k, v, kv_len, scale)
+    B, H, N, M, _, kv_len, scale = _check_kernel_inputs("flash_attention_fwd", "bf16_d64", q, k, v, kv_len, scale)
     qk, mul = score_operand(q, scale)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     _launch(flash_attention_fwd, "flash_attn_fwd_bf16_d64", (qk, k, v, kv_len, out, lse), (B, H, N, M), (mul,),
-            q.device)
+            q.device, (B, H, N, M))
     return out, lse
 
 
-def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel that takes CUDA inputs of this dtype and head dim:
-    'bf16_d64' (``csrc/flash_attn_fwd.cu``, the DA3 trunks) or 'f32'
-    (``csrc/attn_f32.cu``: fp32, D any multiple of 8 up to 128, the
-    camera encoder's trunk). Raises ValueError for anything else."""
-    if dtype == torch.bfloat16 and head_dim == _HEAD_DIM:
-        return "bf16_d64"
-    if dtype == torch.float32 and head_dim % 8 == 0 and 8 <= head_dim <= _F32_MAX_HEAD_DIM:
-        return "f32"
-    raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: bf16 takes D = {_HEAD_DIM}, "
-                     f"fp32 any multiple of 8 up to {_F32_MAX_HEAD_DIM}")
+def _cc_score_operand(q, scale: float) -> Tuple[torch.Tensor, float]:
+    """``score_operand`` for the CUDA-core kernels: on fp32 inputs raw q and
+    the scale, which the kernels apply to q . k in fp32 (the rounding of q *
+    scale to the input type is no rounding for fp32: the two orders differ
+    by fp32 rounding alone), so no scale takes a pass over q there."""
+    return (q, float(scale)) if q.dtype == torch.float32 else score_operand(q, scale)
 
 
-def attention_fwd_f32(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 attention forward: (out (B, H, N, D) fp32, lse (B, H, N) fp32),
-    what ``attention_plain`` computes on fp32 inputs.
+def attention_fwd_cuda_core(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward on the CUDA cores: (out (B, H, N, D) in q's dtype,
+    lse (B, H, N) fp32), what ``attention_plain`` computes, with the scores
+    bf16(q * scale) k^T and P rounded to bf16 before P V for bf16 inputs.
 
     CPU tensors take the plain version. CUDA tensors launch
-    ``csrc/attn_f32.cu``, which takes contiguous fp32 (B, H, N, D) inputs
-    with D a multiple of 8 up to 128; anything else raises. Each launch adds
-    one to ``attention_fwd_f32.launches`` and to
-    ``attention_fwd_f32.launches_by_shape[(B, H, N, M, D)]``.
+    ``csrc/attn_cuda_core.cu``, which takes contiguous fp32 or bf16 (B, H,
+    N, D) inputs with D up to 256; anything else raises. Each launch adds
+    one to ``attention_fwd_cuda_core.launches`` and to
+    ``attention_fwd_cuda_core.launches_by_shape[(B, H, N, M, D)]``.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
-    if any(t.device != q.device for t in (k, v)) or q.device.type != "cuda":
-        raise ValueError(f"attention_fwd_f32: tensors on {q.device}/{k.device}/{v.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dim() != 4 or kernel_variant(t.dtype, t.shape[-1]) != "f32" or not t.is_contiguous():
-            raise ValueError(f"attention_fwd_f32 takes contiguous fp32 (B, H, N, D); {name} is "
-                             f"{t.dtype} {tuple(t.shape)}")
-    B, H, N, D = q.shape
-    M = k.shape[2]
-    if k.shape != (B, H, M, D) or v.shape != k.shape or N == 0 or M == 0 or B * H > 65535:
-        raise ValueError(f"attention_fwd_f32: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if kv_len is not None:
-        if kv_len.shape != (B,) or kv_len.device != q.device:
-            raise ValueError(f"kv_len must be ({B},) on {q.device}; got {tuple(kv_len.shape)} on {kv_len.device}")
-        kv_len = kv_len.to(torch.int32).contiguous()
-    scale = D ** -0.5 if scale is None else float(scale)
+    B, H, N, M, D, kv_len, scale = _check_kernel_inputs("attention_fwd_cuda_core", "cuda_core", q, k, v, kv_len,
+                                                        scale)
+    qk, mul = _cc_score_operand(q, scale)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    _launch(attention_fwd_f32, "attn_fwd_f32", (q, k, v, kv_len, out, lse), (B, H, N, M, D), (scale,), q.device)
+    _launch(attention_fwd_cuda_core, "attn_cc_fwd", (qk, k, v, kv_len, out, lse),
+            (_DTYPE_CODE[q.dtype], B, H, N, M, D), (mul,), q.device, (B, H, N, M, D))
     return out, lse
 
 
-def check_backward_supported(q) -> None:
-    """The backward kernels take bf16, D = 64. fp32 inputs off the CPU (the
-    camera encoder's trunk on the card) have a forward kernel but no
-    backward: no path of the port differentiates through them. Raises
-    NotImplementedError for them."""
-    if q.dtype == torch.float32 and q.device.type != "cpu":
-        raise NotImplementedError(
-            "the backward of fp32 attention on the card (GT-pose conditioning, CameraEnc) is not ported: "
-            "ROADMAP §2 item 6")
+def attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the plain version on CPU tensors; on CUDA tensors the
+    kernel ``kernel_variant`` names for the dtype and head dim (raises for
+    what none takes)."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, kv_len, scale)
+    fwd = flash_attention_fwd if kernel_variant(q.dtype, q.shape[-1]) == "bf16_d64" else attention_fwd_cuda_core
+    return fwd(q, k, v, kv_len, scale)
 
 
-def _check_bwd_inputs(what, q, k, v, dout, lse, delta, kv_len, scale):
-    return _check_kernel_inputs(what, q, k, v, kv_len, scale, like_q=(("dout", dout),),
+def _check_bwd_inputs(what, variant, q, k, v, dout, lse, delta, kv_len, scale):
+    return _check_kernel_inputs(what, variant, q, k, v, kv_len, scale, like_q=(("dout", dout),),
                                 row_stats=(("lse", lse), ("delta", delta)))
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, scale=None) -> torch.Tensor:
-    """dq (B, H, N, D) bf16 from the dq kernel: one CTA per 128 query rows
-    (two warpgroups of 64), looping over the keys. CUDA tensors only
+    """dq (B, H, N, D) bf16 from the wgmma dq kernel: one CTA per 128 query
+    rows (two warpgroups of 64), looping over the keys. CUDA tensors only
     (``flash_attention_bwd`` takes CPU tensors to the plain version);
     ``delta`` (B, H, N) fp32 is rowsum(dout * out). Counts its launches like
     ``flash_attention_fwd``."""
-    B, H, N, M, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", q, k, v, dout, lse, delta, kv_len, scale)
+    B, H, N, M, _, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", "bf16_d64", q, k, v, dout, lse,
+                                                     delta, kv_len, scale)
     qk, mul = score_operand(q, scale)
     dq = torch.empty_like(q)
     _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16_d64", (qk, k, v, dout, lse, delta, kv_len, dq),
-            (B, H, N, M), (mul, scale), q.device)
+            (B, H, N, M), (mul, scale), q.device, (B, H, N, M))
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=None, scale=None):
-    """(dk, dv) (B, H, M, D) bf16 from the dk/dv kernel: one CTA per 128 key
-    rows (two warpgroups of 64), looping over the queries; keys at index >=
-    kv_len[b] get zeros. CUDA tensors only. Counts its launches like
-    ``flash_attention_fwd``."""
-    B, H, N, M, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", q, k, v, dout, lse, delta, kv_len, scale)
+    """(dk, dv) (B, H, M, D) bf16 from the wgmma dk/dv kernel: one CTA per
+    128 key rows (two warpgroups of 64), looping over the queries; keys at
+    index >= kv_len[b] get zeros. CUDA tensors only. Counts its launches
+    like ``flash_attention_fwd``."""
+    B, H, N, M, _, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", "bf16_d64", q, k, v, dout, lse,
+                                                     delta, kv_len, scale)
     qk, mul = score_operand(q, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(flash_attention_bwd_dkv, "flash_attn_bwd_dkv_bf16_d64", (q, qk, k, v, dout, lse, delta, kv_len, dk, dv),
-            (B, H, N, M), (mul, scale), q.device)
+            (B, H, N, M), (mul, scale), q.device, (B, H, N, M))
+    return dk, dv
+
+
+def attention_bwd_dq_cuda_core(q, k, v, dout, lse, delta, kv_len=None, scale=None) -> torch.Tensor:
+    """dq (B, H, N, D) in q's dtype from the CUDA-core dq kernel: one warp a
+    query row, looping over tiles of 32 keys. CUDA tensors only; fp32 or
+    bf16 with D up to 256. Launches counted under (B, H, N, M, D)."""
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("attention_bwd_dq_cuda_core", "cuda_core", q, k, v, dout, lse,
+                                                     delta, kv_len, scale)
+    qk, mul = _cc_score_operand(q, scale)
+    dq = torch.empty_like(q)
+    _launch(attention_bwd_dq_cuda_core, "attn_cc_bwd_dq", (qk, k, v, dout, lse, delta, kv_len, dq),
+            (_DTYPE_CODE[q.dtype], B, H, N, M, D), (mul, scale), q.device, (B, H, N, M, D))
+    return dq
+
+
+def attention_bwd_dkv_cuda_core(q, k, v, dout, lse, delta, kv_len=None, scale=None):
+    """(dk, dv) (B, H, M, D) in q's dtype from the CUDA-core dk/dv kernel:
+    one warp a key row, looping over tiles of 32 queries; keys at index >=
+    kv_len[b] get zeros. CUDA tensors only. Launches counted under (B, H,
+    N, M, D)."""
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("attention_bwd_dkv_cuda_core", "cuda_core", q, k, v, dout,
+                                                     lse, delta, kv_len, scale)
+    qk, mul = _cc_score_operand(q, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(attention_bwd_dkv_cuda_core, "attn_cc_bwd_dkv", (q, qk, k, v, dout, lse, delta, kv_len, dk, dv),
+            (_DTYPE_CODE[q.dtype], B, H, N, M, D), (mul, scale), q.device, (B, H, N, M, D))
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, kv_len=None, scale=None):
-    """Flash-attention backward: (dq, dk, dv) in the inputs' dtype from
-    ``out`` and ``lse`` as ``flash_attention_fwd`` returned them and the
-    gradient ``dout`` of ``out``.
+    """Attention backward: (dq, dk, dv) in the inputs' dtype from ``out``
+    and ``lse`` as the forward returned them and the gradient ``dout`` of
+    ``out``.
 
-    CPU tensors take ``attention_bwd_plain``. CUDA tensors launch the two
-    kernels (bf16, D = 64, contiguous; anything else raises, never the
-    plain version)."""
+    CPU tensors take ``attention_bwd_plain``. CUDA tensors launch the dq and
+    the dk/dv kernel that ``kernel_variant`` names (the wgmma pair for bf16
+    D = 64, the CUDA-core pair for fp32 and other head dims; anything else
+    raises, never the plain version)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, kv_len, scale)
     if out.shape != q.shape or out.device != q.device or dout.device != q.device:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} on {out.device}, dout on {dout.device}, "
                          f"q {tuple(q.shape)} on {q.device}")
     delta = (dout.float() * out.float()).sum(dim=-1)
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len, scale)
+    if kernel_variant(q.dtype, q.shape[-1]) == "bf16_d64":
+        dq_fn, dkv_fn = flash_attention_bwd_dq, flash_attention_bwd_dkv
+    else:
+        dq_fn, dkv_fn = attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core
+    dq = dq_fn(q, k, v, dout, lse, delta, kv_len, scale)
+    dk, dv = dkv_fn(q, k, v, dout, lse, delta, kv_len, scale)
     return dq, dk, dv
 
 
+_KERNEL_WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv, attention_fwd_cuda_core,
+                   attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core)
+
+
 def reset_launch_counts() -> None:
-    for wrapper in (flash_attention_fwd, attention_fwd_f32, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    for wrapper in _KERNEL_WRAPPERS:
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
 
@@ -358,10 +418,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, scale):
-        fwd = flash_attention_fwd
-        if q.device.type != "cpu" and kernel_variant(q.dtype, q.shape[-1]) == "f32":
-            fwd = attention_fwd_f32
-        out, lse = fwd(q, k, v, kv_len, scale)
+        out, lse = attention_fwd(q, k, v, kv_len, scale)
         ctx.save_for_backward(q, k, v, out, lse, kv_len)
         ctx.scale = scale
         return out
@@ -369,7 +426,6 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, kv_len = ctx.saved_tensors
-        check_backward_supported(q)
         # the gradient arrives through a transpose of the output: the kernels take it contiguous
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), kv_len, ctx.scale)
         return dq, dk, dv, None, None
@@ -382,9 +438,9 @@ def flash_attention(q, k, v, kv_len=None, scale=None, impl: str = "auto") -> tor
     impl: 'auto' runs the kernels on CUDA tensors (forward, and the two
     backward kernels when a gradient flows) and the plain versions on CPU
     tensors; 'plain' forces ``attention_plain`` under autograd (the
-    reference runs). On CUDA, bf16 with D = 64 goes to the flash kernels and
-    fp32 (D a multiple of 8 up to 128) to the fp32 forward kernel, whose
-    backward raises NotImplementedError; other inputs raise ValueError.
+    reference runs). On CUDA, bf16 with D = 64 goes to the wgmma kernels and
+    fp32 or bf16 with any other D up to 256 to the CUDA-core kernels,
+    forward and backward (``kernel_variant``); other inputs raise ValueError.
     """
     if impl == "plain":
         return attention_plain(q, k, v, kv_len, scale)[0]

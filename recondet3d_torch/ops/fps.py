@@ -17,7 +17,12 @@ peer's shared memory (``st.async`` completing on the peer's mbarrier). When
 the valid points do not fit in one cluster, the clusters exchange one
 tagged record each through device memory as well. The kernel decides how
 many clusters a cloud needs from its valid count; the launch has as many as
-N could need (``launch_plan``). The TPU kernel's lane planes, scalar
+N could need (``launch_plan``), at most the 7 an H100 runs at once at a
+CTA's full shared memory. Beyond what those hold on chip (1,404,928 rows), a
+CTA's share runs past its shared memory: the rest stays in device memory
+(the staging buffer and a min-distance beside each point) and streams on
+every selection, up to ``MAX_POINTS`` rows (the Pallas kernel's stated
+ceiling is about 5 M). The TPU kernel's lane planes, scalar
 tournament and AABB block pruning answer that machine's costs and are not
 carried over; results do not depend on them.
 
@@ -38,7 +43,7 @@ import torch
 __all__ = ["furthest_point_sample_cuda", "exchange_probe", "launch_plan", "FpsPlan", "reset_launch_counts",
            "MAX_POINTS", "CLUSTER"]
 
-MAX_POINTS = (1 << 22) - 2  # the kernel packs an index into 22 bits
+MAX_POINTS = (1 << 23) - 2  # the kernel packs an index into 23 bits
 # the launch shape csrc/fps.cu fixes: 16 CTAs a cluster, 512 threads a CTA, 10 points a thread in registers
 CLUSTER = 16
 REG_POINTS = 10 * 512
@@ -50,26 +55,26 @@ _CTRL_HEAD, _SLOT_WORDS = 4, 2 * MAX_CLUSTERS * 4
 
 
 class FpsPlan(NamedTuple):
-    clusters: int  # clusters launched: as many as N points could need
-    cta_cap: int  # points a CTA can hold
+    clusters: int  # clusters launched: as many as N points could need, at most MAX_CLUSTERS
+    cta_cap: int  # points a CTA holds on chip
     smem_points: int  # of those, the points beyond the registers
     smem_bytes: int  # dynamic shared memory a CTA
+    overflow: int  # points a CTA may own beyond cta_cap, kept in device memory (0 up to 1,404,928 rows)
 
 
 def launch_plan(n: int) -> FpsPlan:
     """The launch for an N-row buffer, as if every row were valid: the
-    fewest clusters whose CTAs hold N points, each CTA's capacity and its
-    shared memory. Raises ValueError above ``MAX_POINTS`` or when N needs
-    more than ``MAX_CLUSTERS`` clusters."""
+    fewest clusters whose CTAs hold N points on chip, at most
+    ``MAX_CLUSTERS``; each CTA's on-chip capacity and shared memory; and,
+    when N exceeds what those clusters hold, each CTA's overflow in device
+    memory. Raises ValueError outside 1..``MAX_POINTS``."""
     if not 1 <= n <= MAX_POINTS:
         raise ValueError(f"fps kernel: N={n} (1..{MAX_POINTS})")
-    clusters = -(-n // (CLUSTER * CTA_MAX_POINTS))
-    if clusters > MAX_CLUSTERS:
-        raise ValueError(f"fps kernel: N={n} rows do not fit the shared memory of {MAX_CLUSTERS} clusters "
-                         f"({CLUSTER * CTA_MAX_POINTS} points a cluster)")
-    cta_cap = -(-n // (clusters * CLUSTER))
+    clusters = min(MAX_CLUSTERS, -(-n // (CLUSTER * CTA_MAX_POINTS)))
+    share = -(-n // (clusters * CLUSTER))
+    cta_cap = min(share, CTA_MAX_POINTS)
     smem_points = max(0, cta_cap - REG_POINTS)
-    return FpsPlan(clusters, cta_cap, smem_points, _SMEM_FIXED + 16 * cta_cap + 4 * smem_points)
+    return FpsPlan(clusters, cta_cap, smem_points, _SMEM_FIXED + 16 * cta_cap + 4 * smem_points, share - cta_cap)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,7 +82,7 @@ def _lib():
     from recondet3d_torch.ops.build import load_kernels
 
     lib = load_kernels()["fps"]
-    lib.fps_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+    lib.fps_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 6
     lib.fps_f32.restype = ctypes.c_int
     lib.fps_exchange_probe.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
     lib.fps_exchange_probe.restype = ctypes.c_int
@@ -112,12 +117,14 @@ def furthest_point_sample_cuda(points: torch.Tensor, valid: torch.Tensor, start:
     dev = points.device
     out = torch.empty(K, dtype=torch.int32, device=dev)
     staging = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    odist = torch.empty(N, dtype=torch.float32, device=dev) if plan.overflow else None
     ctrl = torch.zeros(_CTRL_HEAD + CLUSTER * plan.clusters, dtype=torch.int32, device=dev)
     slots = torch.zeros(_SLOT_WORDS, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().fps_f32(points.data_ptr(), valid.data_ptr(), start.data_ptr(), N, K, plan.clusters,
-                             plan.cta_cap, plan.smem_points, staging.data_ptr(), ctrl.data_ptr(), slots.data_ptr(),
+                             plan.cta_cap, plan.cta_cap + plan.overflow, plan.smem_points, staging.data_ptr(),
+                             None if odist is None else odist.data_ptr(), ctrl.data_ptr(), slots.data_ptr(),
                              out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fps kernel launch failed: cudaError {err} (N={N}, K={K}, {plan})")

@@ -240,22 +240,33 @@ F32_REL_TOL, F32_LSE_TOL = 1e-5, 1e-5
 def test_cuda_fp32_kernel_matches_plain(S, D, use_kv_len):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    from recondet3d_torch.ops.attention import attention_fwd_f32
+    from recondet3d_torch.ops.attention import (attention_bwd_dkv_cuda_core, attention_bwd_dq_cuda_core,
+                                                attention_bwd_plain, attention_fwd_cuda_core)
 
     B, H = 2, 16
     rng = np.random.default_rng(S * 1000 + D)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).cuda() for _ in range(3))
     kvl = torch.tensor([max(1, S // 2 - 1), S], dtype=torch.int32).cuda() if use_kv_len else None
     reset_launch_counts()
-    out, lse = attention_fwd_f32(q, k, v, kvl)
+    out, lse = attention_fwd_cuda_core(q, k, v, kvl)
     got = flash_attention(q, k, v, kv_len=kvl)  # the dispatcher takes fp32 CUDA inputs to the same kernel
     torch.cuda.synchronize()
-    assert attention_fwd_f32.launches == 2 and attention_fwd_f32.launches_by_shape == {(B, H, S, S, D): 2}
+    assert attention_fwd_cuda_core.launches == 2
+    assert attention_fwd_cuda_core.launches_by_shape == {(B, H, S, S, D): 2}
     assert flash_attention_fwd.launches == 0
     ref_out, ref_lse = attention_plain(q, k, v, kvl)
     assert out.dtype == torch.float32 and torch.isfinite(out).all() and torch.equal(got, out)
     assert (torch.linalg.norm(out - ref_out) / torch.linalg.norm(ref_out)).item() <= F32_REL_TOL
     assert (lse - ref_lse).abs().max().item() <= F32_LSE_TOL
+    # the backward runs the CUDA-core dq and dk/dv kernels, to the forward's gate; errors are measured against
+    # the call's gradient scale (the largest norm of dq, dk, dv): with one key (S = 1) p = 1, and dq and dk are
+    # rounding noise of dP - delta, which cancels, so their own norms are no scale
+    g = torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).cuda()
     leaves = [a.clone().requires_grad_() for a in (q, k, v)]
-    with pytest.raises(NotImplementedError):  # no backward kernel for fp32
-        flash_attention(*leaves).sum().backward()
+    grads = torch.autograd.grad(flash_attention(*leaves, kv_len=kvl), leaves, g)
+    assert attention_bwd_dq_cuda_core.launches == 1 and attention_bwd_dkv_cuda_core.launches == 1
+    ref = attention_bwd_plain(q, k, v, ref_out, ref_lse, g, kvl)
+    scale = max(torch.linalg.norm(r).item() for r in ref)
+    for a, r in zip(grads, ref):
+        assert torch.isfinite(a).all()
+        assert torch.linalg.norm(a - r).item() <= F32_REL_TOL * scale

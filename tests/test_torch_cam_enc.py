@@ -3,8 +3,8 @@
 heads of D = 24 and 64) with shared numpy-made weights; the fp32 attention
 it runs against the Pallas kernel in interpret mode at the camera encoder's
 head dims; and the dispatch rules of ``flash_attention`` for fp32 inputs
-(the plain version on CPU tensors, the fp32 kernel on CUDA tensors of a
-head dim it takes, a raise for anything else, and no backward on the card).
+(the plain version on CPU tensors, the CUDA-core kernels on CUDA tensors of
+a head dim up to 256, forward and backward, a raise for anything else).
 
 Tolerance: 1e-4 absolute and relative. Both sides compute in fp32; the
 readings are ~4e-6 on outputs of size ~4 (sums in another order)."""
@@ -20,9 +20,8 @@ from recondet3d.models.da3.cam import CameraEnc as JCameraEnc
 from recondet3d.ops import attention as jattn
 from recondet3d_torch.models.da3.cam import CameraEnc
 from recondet3d_torch.ops.attention import (
-    attention_fwd_f32,
+    attention_fwd_cuda_core,
     attention_plain,
-    check_backward_supported,
     flash_attention,
     flash_attention_fwd,
     kernel_variant,
@@ -64,7 +63,7 @@ def test_camera_encoder_matches_jax(dim_out):
     reset_launch_counts()
     with torch.no_grad():
         got = tw(torch.from_numpy(ext), torch.from_numpy(ixt))
-    assert attention_fwd_f32.launches == 0 and flash_attention_fwd.launches == 0
+    assert attention_fwd_cuda_core.launches == 0 and flash_attention_fwd.launches == 0
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 6, dim_out)
     np.testing.assert_allclose(to_np(got), np.asarray(ref), atol=ATOL, rtol=RTOL)
 
@@ -80,7 +79,7 @@ def test_fp32_attention_matches_pallas_interpret(D, S, use_kv_len):
     ref = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                 kv_len=None if kv_len is None else jnp.asarray(kv_len), impl="pallas")
     t = torch.from_numpy
-    out, lse = attention_fwd_f32(t(q), t(k), t(v), None if kv_len is None else t(kv_len))
+    out, lse = attention_fwd_cuda_core(t(q), t(k), t(v), None if kv_len is None else t(kv_len))
     assert out.dtype == torch.float32 and lse.shape == (2, 16, S)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
     got = flash_attention(t(q), t(k), t(v), kv_len=None if kv_len is None else t(kv_len))
@@ -96,20 +95,25 @@ def test_fp32_dispatch_on_cpu_runs_the_plain_version_and_launches_nothing():
     assert torch.equal(out, attention_plain(q, k, v)[0])
     out.sum().backward()  # the CPU backward is the plain one, fp32 included
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in leaves)
-    assert attention_fwd_f32.launches == 0 and attention_fwd_f32.launches_by_shape == {}
+    assert attention_fwd_cuda_core.launches == 0 and attention_fwd_cuda_core.launches_by_shape == {}
     assert flash_attention_fwd.launches == 0
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "bf16_d64"),
-    *[(torch.float32, d, "f32") for d in (8, 24, 48, 64, 96, 128)],
+    *[(torch.float32, d, "cuda_core") for d in (8, 24, 48, 64, 96, 128)],
+    # taken since the CUDA-core family holds any D up to 256, in fp32 and in bf16 (but 64)
+    (torch.float32, 20, "cuda_core"), (torch.float32, 136, "cuda_core"), (torch.float32, 4, "cuda_core"),
+    (torch.bfloat16, 96, "cuda_core"),
+    *[(torch.float32, d, "cuda_core") for d in (1, 256)],
+    *[(torch.bfloat16, d, "cuda_core") for d in (1, 20, 32, 63, 65, 128, 256)],
 ])
 def test_kernel_variant_takes(dtype, D, variant):
     assert kernel_variant(dtype, D) == variant
 
 
-@pytest.mark.parametrize("dtype,D", [(torch.float32, 20), (torch.float32, 136), (torch.float32, 4),
-                                     (torch.float16, 64), (torch.bfloat16, 96), (torch.float64, 64)])
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float64, 64), (torch.float32, 264),
+                                     (torch.bfloat16, 264), (torch.float32, 0), (torch.float16, 32)])
 def test_kernel_variant_raises(dtype, D):
     with pytest.raises(ValueError, match="no attention kernel"):
         kernel_variant(dtype, D)
@@ -117,17 +121,17 @@ def test_kernel_variant_raises(dtype, D):
 
 def test_fp32_kernel_wrapper_refuses_what_it_does_not_take():
     """Off the CPU the wrapper launches or raises, never the plain version:
-    a meta tensor stands for a device tensor here."""
+    a meta tensor stands for a device tensor here (it is no CUDA tensor, so
+    the wrapper raises before any launch)."""
     q = torch.empty(2, 16, 6, 20, device="meta")
     with pytest.raises(ValueError):
-        attention_fwd_f32(q, q, q)
+        attention_fwd_cuda_core(q, q, q)
     q = torch.empty(2, 16, 6, 24, device="meta", dtype=torch.float16)
     with pytest.raises(ValueError):
-        attention_fwd_f32(q, q, q)
-
-
-def test_backward_of_fp32_attention_on_the_card_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP §2 item 6"):
-        check_backward_supported(torch.empty(2, 16, 6, 24, device="meta"))
-    check_backward_supported(torch.empty(2, 16, 6, 24))  # CPU fp32: the plain backward
-    check_backward_supported(torch.empty(2, 16, 6, 64, device="meta", dtype=torch.bfloat16))
+        attention_fwd_cuda_core(q, q, q)
+    for dtype in (torch.float32, torch.bfloat16):  # D > 256: the wrapper and the dispatcher raise
+        q = torch.empty(2, 16, 6, 264, device="meta", dtype=dtype)
+        with pytest.raises(ValueError):
+            attention_fwd_cuda_core(q, q, q)
+        with pytest.raises(ValueError, match="no attention kernel"):
+            flash_attention(q, q, q)

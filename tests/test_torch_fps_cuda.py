@@ -17,11 +17,15 @@ def t(a):
 
 
 # (n, k, valid share, clusters the kernel must use): one cluster, a 393,216-row buffer whose valid points fit
-# one cluster, the same buffer all valid (two clusters), fewer valid points than K, none valid, a million rows
+# one cluster, the same buffer all valid (two clusters), fewer valid points than K, none valid, a million rows;
+# past the 1,404,928 rows 7 clusters hold on chip: one row over, 3 M rows, and 3 M rows of which a third are
+# valid (5 clusters, nothing in device memory)
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,valid_share,clusters", [(5000, 300, 0.7, 1), (393216, 2000, 0.2, 1),
                                                       (393216, 1500, 1.0, 2), (64, 100, 0.5, 1),
-                                                      (3000, 50, 0.0, 1), (1000000, 200, 1.0, 5)])
+                                                      (3000, 50, 0.0, 1), (1000000, 200, 1.0, 5),
+                                                      (1404929, 200, 1.0, 7), (3000000, 100, 1.0, 7),
+                                                      (3000000, 100, 0.33, 5)])
 def test_fps_cuda_kernel_matches_plain(n, k, valid_share, clusters):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the FPS kernel is CUDA only")
@@ -43,14 +47,14 @@ def test_fps_cuda_kernel_matches_plain(n, k, valid_share, clusters):
 
 @pytest.mark.cuda
 def test_fps_cuda_kernel_refuses_what_it_cannot_hold():
-    """A cloud larger than the clusters' shared memory raises instead of falling
-    back; so does a tensor the kernel does not take."""
+    """A cloud past the 23-bit index packing raises instead of falling back;
+    so does a tensor the kernel does not take."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the FPS kernel is CUDA only")
-    from recondet3d_torch.ops.fps import furthest_point_sample_cuda
+    from recondet3d_torch.ops.fps import MAX_POINTS, furthest_point_sample_cuda
 
-    big = torch.zeros((3_000_000, 3), device="cuda")
-    with pytest.raises(ValueError, match="do not fit"):
+    big = torch.zeros((MAX_POINTS + 1, 3), device="cuda")
+    with pytest.raises(ValueError, match="1..8388606"):
         furthest_point_sample(big, 8)
     pts = torch.zeros((100, 3), device="cuda")
     with pytest.raises(ValueError, match="fp32"):

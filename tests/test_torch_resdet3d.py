@@ -166,8 +166,9 @@ def test_use_color_carries_rgb_through_the_pipeline():
 
 
 def test_unported_parts_raise_and_device_rule():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ResDet3D(None, pts_bbox_head=torch.nn.Identity())
+    # detection heads are ported (tests/test_torch_resdet3d_det.py): ResDet3D holds one as a submodule
+    head = torch.nn.Identity()
+    assert ResDet3D(None, pts_bbox_head=head).pts_bbox_head is head
     port = build_resdet3d("da3-small", dtype=torch.float32, device="cpu", refinement=False, **BACKBONE)
     assert port.reconstruction_backbone.refinement is None and not port.training
     img, depth, intr, c2l = (torch.from_numpy(a) for a in _inputs(5))
