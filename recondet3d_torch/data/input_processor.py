@@ -3,8 +3,10 @@
 ``process_tensor_batch``): aspect-preserving resize to ``process_res``,
 patch-14 alignment, ImageNet normalization, intrinsics rescale.
 
-The host list-of-images path (``InputProcessor``) needs cv2/PIL and is not
-ported.
+The host list-of-images path (``InputProcessor``, PIL and cv2's INTER_AREA /
+INTER_CUBIC) belongs to the DA3 API and is ROADMAP item 13. The training and
+test CLIs read their images through ``data/image_io.py`` and hand this
+module float tensors.
 """
 
 from __future__ import annotations

@@ -249,7 +249,9 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             if isinstance(m, nn.ConvTranspose2d):
-                fan_in = w.shape[0]  # stride == kernel: one tap per output pixel
+                # the JAX package stores these kernels in the torch layout (I, O, k, k), and flax's lecun-normal
+                # reads that array as HWIO: fan_in = k * I * O
+                fan_in = w.shape[0] * w.shape[1] * w.shape[2]
             else:
                 fan_in = w[0].numel()
             normal_(w, fan_in ** -0.5)

@@ -244,7 +244,10 @@ class CenterHead(nn.Module):
         for pred in preds:
             hm = torch.sigmoid(pred["heatmap"])
             B, H, W, C = hm.shape
-            scores, idx = torch.topk(hm.reshape(B, -1), max_per_task, dim=1)
+            # lax.top_k's order: equal scores (the many empty cells of a random head) lowest index first, which
+            # torch.topk does not promise
+            scores, idx = torch.sort(hm.reshape(B, -1), dim=1, descending=True, stable=True)
+            scores, idx = scores[:, :max_per_task], idx[:, :max_per_task]
             cls = idx % C
             pix = idx // C
             iy, ix = pix // W, pix % W

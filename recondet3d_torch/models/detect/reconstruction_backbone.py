@@ -53,6 +53,7 @@ class ReconstructionBackbone(nn.Module):
         bq_grid_dim: int = 128,
         bq_share_sort: bool = True,
         num_points: int = 40000,
+        gt_num_points: int = 40000,
         voxel_pre_reduce: float = 0.0,
         pre_reduce_cap: int = 393216,
         fps_impl: str = "auto",
@@ -65,6 +66,8 @@ class ReconstructionBackbone(nn.Module):
         self.bq_anchor_points, self.bq_max_radius, self.bq_sample_num = bq_anchor_points, bq_max_radius, bq_sample_num
         self.bq_grid_dim, self.bq_share_sort = bq_grid_dim, bq_share_sort
         self.num_points = num_points
+        # GT points a training scene carries (the training CLI's data iterator pads or cuts each lidar sweep to it)
+        self.gt_num_points = int(gt_num_points)
         self.voxel_pre_reduce, self.pre_reduce_cap = float(voxel_pre_reduce), int(pre_reduce_cap)
         # 'auto': the FPS kernel on CUDA tensors; 'plain': its plain version (reference runs)
         self.fps_impl = fps_impl

@@ -103,7 +103,8 @@ class Trainer:
             log_fn: Callable[[int, Dict], None] = None):
         """Take up to ``max_steps`` (default ``total_steps``) steps over
         ``data_iter`` (dicts of tensors, moved to the model's device).
-        Returns (state, history of logged metrics as floats)."""
+        Every ``checkpoint_interval`` steps of ``state.step`` a checkpoint
+        is saved. Returns (state, history of logged metrics as floats)."""
         device = next(self.model.parameters()).device
         writer = self._get_writer()
         n = max_steps or self.total_steps
@@ -125,7 +126,8 @@ class Trainer:
                     log_fn(state.step, m)
             for hook in self.hooks:
                 hook(state.step, state, metrics)
-            if self.checkpoint_interval and (i + 1) % self.checkpoint_interval == 0:
+            # by the state's step, so that a resumed run saves at the same steps as one that never stopped
+            if self.checkpoint_interval and state.step % self.checkpoint_interval == 0:
                 self.save_checkpoint(state)
         return state, history
 
