@@ -10,8 +10,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
             (one nvcc per source, started together); per kernel the ptxas
             registers, spills and shared memory, and the Hopper kernels'
             wgmma / TMA instructions counted in the SASS (``cuobjdump``). Fails on a spill or an ignored
-            ``setmaxnreg`` in the forward, dq or dk/dv kernel, or if one has
-            no HGMMA or no TMA load; launches the FPS kernel once on a small
+            ``setmaxnreg`` in any instance of the forward (<DC, EDGE>: DC =
+            1-4 64-column chunks, EDGE a last chunk partly past D), the dq
+            kernel or the dk/dv kernel (DC = 1-2), or if one has no HGMMA or
+            no TMA load; launches the FPS kernel once on a small
             cloud and fails unless it ran with its cluster dimension (16).
 3. kernel   the flash-attention kernel vs its plain PyTorch version (fp32
             math on the same bf16 values) at the DA3 nested-giant-large
@@ -80,10 +82,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
             and the exponentials' floor.
 11b. cc      the CUDA-core attention family (``csrc/attn_cuda_core.cu``):
             forward, dq and dk/dv against the plain versions in fp32 at the
-            camera encoders' shapes and in bf16 at D in {32, 96, 128, 20} at
-            721 and 4,326 tokens; same bits run to run; times beside the
-            bound, the plain versions and SDPA. Then B*H = 65,552 > 65,535 for
-            the wgmma kernels (bf16 D=64) and for the CUDA-core family.
+            camera encoders' shapes; same bits run to run; times beside the
+            bound, the plain versions and SDPA. Then bf16 at the head dims no
+            DA3 trunk has, (1, 4, N, D) at D in {32, 96, 128, 20} and N in
+            {721, 4326}, D in {16, 48, 160, 256} at 4,326, one case with
+            ``kv_len`` and one at scale 0.1, through ``flash_attention``: the
+            wgmma forward and dk/dv (the CUDA-core dk/dv past D = 128) and the
+            CUDA-core dq, launches counted, under the bf16 gates, same bits run
+            to run; times beside the bound, the exp floor, the plain versions,
+            SDPA forward and backward and the CUDA-core forward and dk/dv the
+            wgmma kernels replace. Then B*H = 65,552 > 65,535 for the wgmma
+            kernels (bf16 D=64), the wgmma forward and dk/dv at D = 128 and
+            the CUDA-core family (fp32).
 12. finetune ``Trainer`` with ``frozen_patterns=()`` on
             ``build_resdet3d("da3-large", freeze_da3=False)``: fp32 master
             parameters, bf16 compute, every ViT block under checkpointing
@@ -136,11 +146,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
 ``scratch_tree/``) adds one phase after phase 7: the FPS kernel on this run's
-FPS cases, the dq kernel at the fine-tuning shapes, the fp32 attention
-forward at the camera encoders' shapes (device time) and five main-path
-requests, timed by ``recondet3d_torch/tools/kernel_times.py`` in four
-processes, the earlier tree's and this tree's in turns (parent, change,
-change, parent).
+FPS cases, the dq and dk/dv kernels at the fine-tuning shapes, the flash
+forward at the request's shapes, bf16 attention at D in {32, 96, 128, 20}
+(forward and dk/dv on the kernels each tree routes them to), the fp32
+attention forward at the camera encoders' shapes (device time) and five
+main-path requests, timed by ``recondet3d_torch/tools/kernel_times.py`` in
+four processes, the earlier tree's and this tree's in turns (parent, change,
+change, parent); it fails unless ptxas gives the D = 64 instances the
+parent's registers.
 
 Needs CUDA; exits non-zero without it (or without the rest of the repo).
 """
@@ -186,10 +199,12 @@ from recondet3d_torch.ops.attention import (
     attention_bwd_plain,
     attention_fwd_cuda_core,
     attention_plain,
+    flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_fwd,
+    KERNELS,
     kernel_variant,
     reset_launch_counts,
 )
@@ -197,6 +212,7 @@ from recondet3d_torch.ops.build import BUILD_LOG, load_kernels
 from recondet3d_torch.ops.cell_sort import cell_sort
 from recondet3d_torch.ops.sampling import furthest_point_sample
 from recondet3d_torch.tools import bench as port_bench
+from recondet3d_torch.tools.ptxas_spills import kernel_label
 from recondet3d_torch.utils import stage_timer
 from recondet3d_torch.train import Trainer
 from recondet3d_torch.train import checkpoints as ckpt_io
@@ -270,11 +286,21 @@ TRAIN_FWD_SHAPES = dict(FT_SHAPES, vitg_local_b1=(TRAIN_B * S, 24, 721, 721),
 FT_DEPTH_HEAD_SCALE = 0.1
 MIN_POINTS = 1000  # a train step's scene must keep at least this many points, or max_depth is set from the depth
 
-# the CUDA-core attention family (csrc/attn_cuda_core.cu): every dtype and head dim the wgmma kernels do not take.
-# Its backward runs at CAM_SHAPES; bf16 at head dims no DA3 trunk has, at the trunks' token counts
-CC_BF16_CASES = {f"bf16_d{d}_n{n}": (1, 4, n, d) for d in (32, 96, 128, 20) for n in (721, S * 721)}
-# B*H = 65,552 > 65,535 (the most grid.y takes): one case for the wgmma kernels, one for the CUDA-core family
-MANY_HEADS = {"bf16_d64": (4097, 16, 64, 64), "f32_d24": (4097, 16, S, 24)}
+# the CUDA-core attention family (csrc/attn_cuda_core.cu) in fp32 at CAM_SHAPES, forward and backward. bf16 at head
+# dims no DA3 trunk has, at the trunks' token counts: the wgmma forward (any D) and dk/dv (D <= 128) with the CUDA-core
+# dq, beside the CUDA-core forward and dk/dv they replace; (B, H, N, D), kv_len, scale
+ANY_D_CASES = {f"bf16_d{d}_n{n}": ((1, 4, n, d), None, None) for d in (32, 96, 128, 20) for n in (721, S * 721)}
+ANY_D_CASES.update({f"bf16_d{d}_n{S * 721}": ((1, 4, S * 721, d), None, None) for d in (16, 48, 160, 256)})
+ANY_D_CASES.update({"bf16_d96_n4326_kv_len": ((2, 4, S * 721, 96), [2911, S * 721], None),
+                    "bf16_d128_n4326_scale_0.1": ((1, 4, S * 721, 128), None, 0.1)})
+ANY_D_HEADLINE = "bf16_d128_n4326"  # the kernel table's row: (1, 4, 4326, 128)
+# B*H = 65,552 > 65,535 (the most grid.y takes): the wgmma kernels at D = 64, the wgmma forward and dk/dv at D = 128,
+# the CUDA-core family in fp32
+MANY_HEADS = {"bf16_d64": (4097, 16, 64, 64), "bf16_d128": (4097, 16, 64, 128), "f32_d24": (4097, 16, S, 24)}
+# the kernel wrappers of each kind on each route
+WRAPPER = {("fwd", "wgmma"): flash_attention_fwd, ("dq", "wgmma"): flash_attention_bwd_dq,
+           ("dkv", "wgmma"): flash_attention_bwd_dkv, ("fwd", "cuda_core"): attention_fwd_cuda_core,
+           ("dq", "cuda_core"): attention_bwd_dq_cuda_core, ("dkv", "cuda_core"): attention_bwd_dkv_cuda_core}
 # The GT-pose backward: CameraEnc's parameter gradients with its attention on the kernels vs on the plain version,
 # everything else the same. The two differ by fp32 rounding (~1e-7) in the camera tokens, which then pass 24 bf16
 # ViT-L blocks forward and back, where one flipped bf16 rounding moves a value by ~4e-3: the in-situ feature
@@ -321,6 +347,16 @@ def emit(phase, **kw):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def d64_launches(wrapper, where):
+    """A wgmma wrapper's launches keyed (B, H, N, M), as the main path's
+    shapes are named here; fails on a launch at a head dim other than 64,
+    which no trunk of the main path has."""
+    other = [key for key in wrapper.launches_by_shape if key[4] != 64]
+    if other:
+        fail(f"{where}: {wrapper.__name__} launched at head dims other than 64: {other}")
+    return {key[:4]: n for key, n in wrapper.launches_by_shape.items()}
 
 
 def time_ms(fn, iters, warmup=2):
@@ -733,19 +769,18 @@ def cc_gate(got, ref, dtype, scale=None):
     return rel <= BWD_REL_TOL and scaled <= BWD_ABS_TOL, rel, mx
 
 
-def cc_case(name, shape, dtype, seed, iters=10):
-    """The CUDA-core forward, dq and dk/dv kernels against ``attention_plain``
-    (on the kernels' scores for bf16: bf16(q * scale) k^T) and
-    ``attention_bwd_plain`` on one set of inputs; same bits run to run; times
-    of each kernel in a loop of launches, the plain versions and SDPA
-    (forward, and its backward alone); device times at the launch-bound
-    camera-encoder shapes are ``f32_case``'s."""
+def cc_case(name, shape, seed, iters=10):
+    """The CUDA-core forward, dq and dk/dv kernels in fp32 against
+    ``attention_plain`` and ``attention_bwd_plain`` on one set of inputs;
+    same bits run to run; times of each kernel in a loop of launches, the
+    plain versions and SDPA (forward, and its backward alone); device times
+    at the launch-bound camera-encoder shapes are ``f32_case``'s."""
     Bq, H, N, D = shape
+    dtype = torch.float32
     rng = np.random.default_rng(seed)
-    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype) for _ in range(4))
-    if kernel_variant(dtype, D) != "cuda_core":
-        fail(f"{name}: {dtype} D={D} is not a CUDA-core case")
-    scale = D ** -0.5
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
+    if any(kernel_variant(dtype, D, kind) != "cuda_core" for kind in KERNELS):
+        fail(f"{name}: fp32 D={D} is not routed to the CUDA-core family")
     reset_launch_counts()
     out, lse = attention_fwd_cuda_core(q, k, v)
     got = flash_attention_bwd(q, k, v, out, lse, do)
@@ -755,20 +790,16 @@ def cc_case(name, shape, dtype, seed, iters=10):
     again = flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
     same_bits = torch.equal(out, out2) and torch.equal(lse, lse2) and all(torch.equal(a, b) for a, b in zip(got, again))
-    if dtype == torch.float32:
-        ref_out, ref_lse = attention_plain(q, k, v)
-    else:
-        qs = (q.float() * scale).to(dtype)
-        ref_out, ref_lse = attention_plain(qs.float(), k.float(), v.float(), None, 1.0)
+    ref_out, ref_lse = attention_plain(q, k, v)
     ok_out, rel_out, err_out = cc_gate(out, ref_out, dtype)
     err_lse = (lse - ref_lse).abs().max().item()
-    ok_out = ok_out and err_lse <= (F32_LSE_TOL if dtype == torch.float32 else LSE_TOL)
+    ok_out = ok_out and err_lse <= F32_LSE_TOL
     ref = attention_bwd_plain(q, k, v, out, lse, do)
     # the call's gradient scale: with few keys dq and dk can be rounding noise of dP - delta, which cancels
     gscale = max(torch.linalg.norm(r.float()) for r in ref)
     errs = {}
     for key, a, r in zip(("dq", "dk", "dv"), got, ref):
-        ok, rl, mx = cc_gate(a, r, dtype, scale=gscale if dtype == torch.float32 else None)
+        ok, rl, mx = cc_gate(a, r, dtype, scale=gscale)
         errs[key] = dict(rel_l2=rl, max_abs=mx, ok=ok and bool(torch.isfinite(a).all()))
     del ref, ref_out, ref_lse
     ok = ok_out and all(e["ok"] for e in errs.values()) and same_bits and launched == (1, 1, 1, 0)
@@ -799,6 +830,89 @@ def cc_case(name, shape, dtype, seed, iters=10):
     return res
 
 
+def any_d_case(name, shape, kv_len, scale, seed, iters=5):
+    """bf16 attention at a head dim no DA3 trunk has, through
+    ``flash_attention`` under autograd as a user calls it: the wgmma forward,
+    the CUDA-core dq and the wgmma dk/dv (the CUDA-core dk/dv past D = 128),
+    launches counted, against ``attention_plain`` on the kernels' scores
+    (bf16(q * scale) k^T, in fp32) and ``attention_bwd_plain``'s fp32 sums
+    before their last rounding (a kernel's bf16 output is one rounding from
+    them; two roundings of sums taken in other orders can land one bf16 ulp
+    apart, 2^-7 at values in [1, 2), past the absolute gate), under the bf16
+    gates; same bits run to run. Times of each kernel in a loop of launches
+    (the wrapper's pad of a D that is no multiple of 8 included) beside the
+    bound, the exp floor, the plain versions, SDPA's forward and its backward
+    alone on the same values, and the CUDA-core forward and dk/dv that the
+    wgmma kernels replace, in this call."""
+    Bq, H, N, D = shape
+    M = N
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(torch.bfloat16)
+                   for _ in range(4))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    routes = {kind: kernel_variant(torch.bfloat16, D, kind) for kind in KERNELS}
+    reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, kv_len=kvl, scale=scale)
+    got = torch.autograd.grad(out, leaves, do)
+    launched = {f"{kind}_{route}": WRAPPER[kind, route].launches for kind, route in WRAPPER}
+    out2 = flash_attention(*leaves, kv_len=kvl, scale=scale)
+    again = torch.autograd.grad(out2, leaves, do)
+    torch.cuda.synchronize()
+    same_bits = torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    want = {f"{kind}_{route}": int(routes[kind] == route) for kind, route in WRAPPER}
+    out = out.detach()
+    _, lse = flash_attention_fwd(q, k, v, kvl, scale)
+    qs = (q.float() * (D ** -0.5 if scale is None else scale)).to(torch.bfloat16)
+    ref_out, ref_lse = attention_plain(qs.float(), k.float(), v.float(), kvl, 1.0)
+    ok_out, rel_out, err_out = cc_gate(out, ref_out, torch.bfloat16)
+    err_lse = (lse - ref_lse).abs().max().item()
+    ok_out = ok_out and err_lse <= LSE_TOL and bool(torch.isfinite(out).all())
+    del ref_out, ref_lse
+    ref = attention_bwd_plain(q, k, v, out, lse, do, kvl, scale, out_dtype=torch.float32)
+    errs = {}
+    for key, a, r in zip(("dq", "dk", "dv"), got, ref):
+        ok, rl, mx = cc_gate(a, r, torch.bfloat16)
+        errs[key] = dict(rel_l2=rl, max_abs=mx, ok=ok and bool(torch.isfinite(a).all()))
+    del ref
+    ok = ok_out and all(e["ok"] for e in errs.values()) and same_bits and launched == want
+
+    delta = (do.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, kvl, scale)
+    ms = {kind: time_ms(lambda: WRAPPER[kind, routes[kind]](*args), iters) for kind in ("dq", "dkv")}
+    ms["fwd"] = time_ms(lambda: flash_attention_fwd(q, k, v, kvl, scale), iters)
+    cuda_core_ms = dict(fwd=time_ms(lambda: attention_fwd_cuda_core(q, k, v, kvl, scale), iters),
+                        dkv=time_ms(lambda: attention_bwd_dkv_cuda_core(*args), iters))
+    plain_ms = dict(fwd=time_ms(lambda: attention_plain(q, k, v, kvl, scale), 1, warmup=1),
+                    bwd=time_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, kvl, scale), 1, warmup=1))
+    if kvl is None:
+        mask, rows = None, np.full(Bq * H, M, np.float64)
+    else:
+        mask = (torch.arange(M, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+        rows = np.repeat(np.minimum(np.asarray(kv_len, np.float64), M), H)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale), iters)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+    lib_bwd = min(time_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), iters)
+                  for _ in range(3))
+    del o_lib, ql, kl, vl
+    bounds = dict(fwd=bound_ms(Bq * H, N, rows, D), dq=bwd_bound_ms(Bq * H, N, M, rows, 6, N, D),
+                  dkv=bwd_bound_ms(Bq * H, N, M, rows, 8, 2 * M, D))
+    res = dict(name=name, shape=list(shape), kv_len=kv_len, scale=scale, routes=routes,
+               max_abs_err=max([err_out] + [e["max_abs"] for e in errs.values()]), max_abs_err_out=err_out,
+               rel_l2_err_out=rel_out, max_abs_err_lse=err_lse, errors=errs,
+               tol=dict(out_rel_l2=BWD_REL_TOL, max_abs_over_max1_value=BWD_ABS_TOL, lse=LSE_TOL),
+               same_bits_run_to_run=same_bits, launches=launched, ms=ms, cuda_core_ms=cuda_core_ms,
+               bound_ms={k: b[0] for k, b in bounds.items()}, bound_by={k: b[1] for k, b in bounds.items()},
+               exp_floor_ms=exp_floor_ms(N, rows), plain_ms=plain_ms, library_ms=dict(fwd=lib_fwd, bwd=lib_bwd),
+               ok=ok)
+    emit("any_d_kernel", **res)
+    if not ok:
+        fail(f"bf16 attention at D={D} disagrees with the plain versions at {name}: out rel {rel_out} (abs {err_out}, "
+             f"lse {err_lse}), {errs}; same bits {same_bits}; launches {launched}, expected {want}")
+    return res
+
+
 def head_rel_l2(got, ref, scale=None):
     """The largest relative L2 error of one head over (B, H, rows, D)
     tensors, each head against its own ``scale`` (B, H) (default: the
@@ -811,22 +925,21 @@ def head_rel_l2(got, ref, scale=None):
 
 
 def many_heads_case(name, shape, dtype, seed):
-    """B*H = 65,552: the forward and both backward kernels of the variant the
-    dtype and D select, against the plain versions: the worst head's
-    relative L2 to the variant's relative gate (the backward against the
-    head's largest gradient norm)."""
+    """B*H = 65,552: the forward and both backward kernels that the dtype
+    and D route to, against the plain versions: the worst head's relative
+    L2 to the dtype's relative gate (the backward against the head's largest
+    gradient norm)."""
     Bq, H, N, D = shape
-    # 268 M values a tensor: drawn on the card (numpy takes ~20 s for the four)
+    # 268 M values a tensor at D = 64: drawn on the card (numpy takes ~20 s for the four)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
-    variant = kernel_variant(dtype, D)
-    fwd = flash_attention_fwd if variant == "bf16_d64" else attention_fwd_cuda_core
+    routes = {kind: kernel_variant(dtype, D, kind) for kind in KERNELS}
+    kernels = [WRAPPER[kind, routes[kind]] for kind in KERNELS]
+    fwd = kernels[0]
     reset_launch_counts()
     out, lse = fwd(q, k, v)
     got = flash_attention_bwd(q, k, v, out, lse, do)
     torch.cuda.synchronize()
-    kernels = (fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv) if variant == "bf16_d64" else \
-        (fwd, attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core)
     launched = [w.launches for w in kernels]
     if dtype == torch.float32:
         ref_out = attention_plain(q, k, v)[0]
@@ -841,8 +954,10 @@ def many_heads_case(name, shape, dtype, seed):
     errs = {key: dict(rel_l2=head_rel_l2(a, r, hscale), max_abs=(a.float() - r.float()).abs().max().item())
             for key, a, r in zip(("dq", "dk", "dv"), got, ref)}
     del ref, ref_out
+    delta = (do.float() * out.float()).sum(dim=-1)
     ms = {kind: time_ms(fn, 5) for kind, fn in (
-        ("fwd", lambda: fwd(q, k, v)), ("bwd", lambda: flash_attention_bwd(q, k, v, out, lse, do)))}
+        ("fwd", lambda: fwd(q, k, v)), ("bwd", lambda: flash_attention_bwd(q, k, v, out, lse, do)),
+        ("dkv", lambda: kernels[2](q, k, v, do, lse, delta)))}
     # the table's bound (cc_bounds: 4 / 6 / 8 N M D a head at the inputs' peak, or the bytes) and SDPA on the same
     # inputs, its forward and its backward alone (CUDA events around 5 calls: these calls are long enough that
     # the events read device time)
@@ -853,7 +968,7 @@ def many_heads_case(name, shape, dtype, seed):
                       bwd=time_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), 5))
     del ql, kl, vl, o_lib
     ok = rel_out <= tol and all(e["rel_l2"] <= tol for e in errs.values()) and launched == [1, 1, 1]
-    res = dict(name=name, shape=list(shape), heads=Bq * H, variant=variant, worst_head_rel_l2_out=rel_out,
+    res = dict(name=name, shape=list(shape), heads=Bq * H, routes=routes, worst_head_rel_l2_out=rel_out,
                max_abs_err_out=err_out, errors=errs, tol=dict(worst_head_rel_l2=tol), launches=launched, ms=ms,
                bound_ms={k: v[0] for k, v in bounds.items()}, bound_by={k: v[1] for k, v in bounds.items()},
                library_ms=library_ms, ok=ok)
@@ -929,13 +1044,18 @@ def gt_pose_backward_phase():
 
 
 def parent_comparison(parent, fps_cases):
-    """The FPS kernel on this run's FPS cases, the dq kernel at the
-    fine-tuning shapes, the fp32 attention forward at the camera encoders'
-    shapes and PARENT_REQUESTS main-path requests, of the tree
-    at ``parent`` and of this one, timed by
+    """The FPS kernel on this run's FPS cases, the dq and dk/dv kernels at
+    the fine-tuning shapes, the flash forward at the request's shapes, bf16
+    attention at head dims other than 64 (forward and dk/dv, on whatever
+    kernels each tree routes them to), the fp32 attention forward at the
+    camera encoders' shapes and PARENT_REQUESTS main-path requests, of the
+    tree at ``parent`` and of this one, timed by
     ``recondet3d_torch/tools/kernel_times.py`` in four processes in turns:
     parent, change, change, parent. Both trees must give the same FPS
-    indices."""
+    indices, and ptxas must give the D = 64 instances of this tree's forward
+    and dk/dv (``<1,0>``) and its dq kernel the registers of the parent's
+    kernels. Emits the change's D = 64 request and step mixes over the
+    parent's."""
     here = os.path.dirname(os.path.abspath(__file__))
     tool = os.path.join(here, "recondet3d_torch", "tools", "kernel_times.py")
     runs = []
@@ -950,9 +1070,26 @@ def parent_comparison(parent, fps_cases):
             if out.returncode != 0:
                 fail(f"kernel_times.py in {tree} failed ({out.returncode}): {out.stderr[-2000:]}")
             runs.append(dict(tree=label, **json.loads(out.stdout.strip().splitlines()[-1])))
-    emit("parent_comparison", parent=os.path.abspath(parent), runs=runs)
+    registers = {}
+    for r in runs:
+        regs = {kernel_label(fn): info["registers"] for log in r.pop("ptxas").values()
+                for fn, info in ptxas_report(log).items()}
+        registers[r["tree"]] = regs
+    pairs = {"flash_fwd_kernel": "flash_fwd_kernel<1,0>", "flash_bwd_dkv_kernel": "flash_bwd_dkv_kernel<1,0>",
+             "flash_bwd_dq_kernel": "flash_bwd_dq_kernel"}
+    same_registers = {old: registers["parent"].get(old) == registers["change"].get(new) for old, new in pairs.items()}
+
+    def ratio(key):
+        mean = {tree: np.mean([r[key] for r in runs if r["tree"] == tree]) for tree in ("parent", "change")}
+        return float(mean["change"] / mean["parent"])
+
+    emit("parent_comparison", parent=os.path.abspath(parent), runs=runs, registers=registers,
+         d64_same_registers=same_registers, fwd_request_mix_change_over_parent=ratio("fwd_request_mix_ms"),
+         dkv_step_mix_change_over_parent=ratio("dkv_step_mix_ms"))
     if any(r["fps_indices_sum"] != runs[0]["fps_indices_sum"] for r in runs):
         fail("parent comparison: the two trees' FPS kernels chose different indices")
+    if not all(same_registers.values()):
+        fail(f"parent comparison: the D = 64 instances' registers differ from the parent's: {registers}")
     return runs
 
 
@@ -1293,7 +1430,7 @@ def detection_phase(c2l, depth, fps_case_of, case_of, fwd_case_of):
         dets = head.decode(out["det_preds"], class_names=det.class_names)
         times.append(1e3 * (t1 - t0))
         decode_ms.append(1e3 * (time.perf_counter() - t1))
-    flash_by_shape = dict(flash_attention_fwd.launches_by_shape)
+    flash_by_shape = d64_launches(flash_attention_fwd, "detection")
     fps_by_shape = dict(fps_ops.furthest_point_sample_cuda.launches_by_shape)
     preds = out["det_preds"]
     grid = (B, 180, 180)
@@ -1388,8 +1525,8 @@ def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
             history += h
             counts.append({k: [int(c) for c in v] for k, v in model.reconstruction_backbone.last_stage_counts.items()})
     launches = dict(
-        fwd=dict(flash_attention_fwd.launches_by_shape), dq=dict(flash_attention_bwd_dq.launches_by_shape),
-        dkv=dict(flash_attention_bwd_dkv.launches_by_shape),
+        fwd=d64_launches(flash_attention_fwd, phase), dq=d64_launches(flash_attention_bwd_dq, phase),
+        dkv=d64_launches(flash_attention_bwd_dkv, phase),
         fps=dict(fps_ops.furthest_point_sample_cuda.launches_by_shape))
     unchecked = [shape for shape in launches["fps"] if shape not in fps_case_of]
     unchecked += [shape for shape in launches["fwd"] if shape not in fwd_case_of]
@@ -1552,7 +1689,7 @@ def stage_counts(model):
 
 
 def loop_launches():
-    return dict(fwd=dict(flash_attention_fwd.launches_by_shape),
+    return dict(fwd=d64_launches(flash_attention_fwd, "full loop"),
                 fps=dict(fps_ops.furthest_point_sample_cuda.launches_by_shape))
 
 
@@ -1748,7 +1885,10 @@ def full_loop_full_width_phase(fwd_case_of, fps_case_of):
     return res, tr, te
 
 
-HOPPER_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")  # on wgmma / TMA / mbarriers
+# the kernels on wgmma / TMA / mbarriers, one name a template instance: the forward and dk/dv as <DC, EDGE> (64-column
+# chunks of the head dim; a last chunk partly past D)
+HOPPER_KERNELS = tuple(f"flash_fwd_kernel<{dc},{edge}>" for dc in (1, 2, 3, 4) for edge in (0, 1)) + \
+    ("flash_bwd_dq_kernel",) + tuple(f"flash_bwd_dkv_kernel<{dc},{edge}>" for dc in (1, 2) for edge in (0, 1))
 HOPPER_LIBS = ("flash_attn_fwd", "flash_attn_bwd")  # the sources of HOPPER_KERNELS
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "MUFU.EX2", "SYNCS")
 
@@ -1775,14 +1915,14 @@ def ptxas_report(log):
 
 def instruction_counts(lib):
     """{kernel: {opcode: count}} of a few opcodes in ``cuobjdump -sass`` of a
-    library; kernels named by their unmangled base name."""
+    library; kernels named by ``kernel_label``."""
     exe = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([exe, "-sass", lib], capture_output=True, text=True, check=True, timeout=120).stdout
     counts, cur = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : .*?([a-z][a-z_]*_kernel)", line)
+        m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1)
+            cur = kernel_label(m.group(1))
             counts[cur] = dict.fromkeys(SASS_OPS, 0)
         elif cur:
             for op in SASS_OPS:
@@ -1795,7 +1935,7 @@ def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="Run the PyTorch port on one NVIDIA GPU and check it end to end.")
-    ap.add_argument("--parent", default=None, help="an earlier tree to time the FPS and dq kernels against")
+    ap.add_argument("--parent", default=None, help="an earlier tree to time the FPS and attention kernels against")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1818,8 +1958,8 @@ def main(argv=None):
         # the SASS gates hold only the wgmma kernels: the other libraries' SASS is not read
         sass = instruction_counts(libs[stem]._name) if stem in HOPPER_LIBS else {}
         for fn, info in ptxas_report(entry["ptxas"]).items():
-            short = next((k for k in sass if k in fn), fn)
-            kernels[short] = dict(info, source=f"{stem}.cu", sass=sass.get(short, {}))
+            label = kernel_label(fn) if stem in HOPPER_LIBS else fn
+            kernels[label] = dict(info, source=f"{stem}.cu", sass=sass.get(label, {}))
     warnings = {k: [l.strip() for l in v["ptxas"].splitlines() if "warning" in l.lower()] for k, v in BUILD_LOG.items()}
     emit("build", seconds=build_s, nvcc_s={k: v["seconds"] for k, v in BUILD_LOG.items()},
          report_s=time.perf_counter() - t0, kernels=kernels, warnings=warnings)
@@ -1861,14 +2001,13 @@ def main(argv=None):
                           scale=0.1)]
     bwd_case_of = {tuple(c["shape"]): c for c in bwd_cases.values()}
 
-    # 11b. the CUDA-core attention family: fp32 at the camera encoders' shapes (forward and backward; launch-bound,
-    # so device times too), bf16 at head dims no DA3 trunk has; then B*H > 65535 for both kernel families
-    cc_cam = {name: cc_case(name, shape, torch.float32, seed=60 + i, iters=50)
-              for i, (name, shape) in enumerate(CAM_SHAPES.items())}
-    cc_bf16 = [cc_case(name, shape, torch.bfloat16, seed=70 + i, iters=5) for i, (name, shape) in
-               enumerate(CC_BF16_CASES.items())]
-    many = [many_heads_case("many_heads_" + name, shape, torch.bfloat16 if name.startswith("bf16") else torch.float32,
-                            seed=80 + i) for i, (name, shape) in enumerate(MANY_HEADS.items())]
+    # 11b. the CUDA-core attention family in fp32 at the camera encoders' shapes (forward and backward; launch-bound,
+    # so device times too); bf16 at head dims no DA3 trunk has on the wgmma forward and dk/dv; then B*H > 65535
+    cc_cam = {name: cc_case(name, shape, seed=60 + i, iters=50) for i, (name, shape) in enumerate(CAM_SHAPES.items())}
+    any_d = {name: any_d_case(name, shape, kv_len, scale, seed=70 + i)
+             for i, (name, (shape, kv_len, scale)) in enumerate(ANY_D_CASES.items())}
+    many = {name: many_heads_case("many_heads_" + name, shape, torch.bfloat16 if name.startswith("bf16") else
+                                  torch.float32, seed=80 + i) for i, (name, shape) in enumerate(MANY_HEADS.items())}
 
     # 4. the model of the main path
     t0 = time.perf_counter()
@@ -1903,7 +2042,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             launches.append(flash_attention_fwd.launches - before)
-        by_shape = dict(flash_attention_fwd.launches_by_shape)
+        by_shape = d64_launches(flash_attention_fwd, "slice")
     for key in ("depth", "depth_conf", "sky"):
         if tuple(out[key].shape) != (B, S, 280, 504) or not bool(torch.isfinite(out[key]).all()):
             fail(f"{key}: shape {tuple(out[key].shape)} or non-finite values")
@@ -1979,7 +2118,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         counts.append({k: [int(c) for c in v] for k, v in backbone.last_stage_counts.items()})
-    flash_total, flash_by_shape = flash_attention_fwd.launches, dict(flash_attention_fwd.launches_by_shape)
+    flash_total, flash_by_shape = flash_attention_fwd.launches, d64_launches(flash_attention_fwd, "resdet3d")
     fps_total = fps_ops.furthest_point_sample_cuda.launches
     fps_by_shape = dict(fps_ops.furthest_point_sample_cuda.launches_by_shape)
     pts, msk, logits = out["pseudo_points"], out["pseudo_valid"], out["aux"]["occupancy_logits"]
@@ -2195,7 +2334,7 @@ def main(argv=None):
                  shapes=[dict(c, launches_per_forward=per_forward[n]) for n, c in cases.items()]
                  + [kvl_case, scale_case], train_shapes=list(train_fwd_cases.values()),
                  full_loop_shapes=list(tiny_fwd_case_of.values()),
-                 many_heads=[c for c in many if c["variant"] == "bf16_d64"]),
+                 many_heads=[many["bf16_d64"]]),
             dict(name="fps", route="cuda", source="recondet3d_torch/csrc/fps.cu",
                  replaces="recondet3d/ops/fps_pallas.py:54", status="ported+checked", launches=fps_total,
                  max_abs_err=max(c["max_abs_err"] for c in fps_cases + list(tiny_fps_case_of.values())),
@@ -2241,8 +2380,8 @@ def main(argv=None):
     # the CUDA-core family: the forward on the GT-pose forward's launches (nested-giant, B=2: CameraEnc at D=96),
     # dq and dk/dv on the GT-pose backward's (da3-large, B=1: D=64); ms, plain_ms and library_ms are device time
     # from torch.profiler at these launch-bound shapes, the host_* keys the time a call takes in a loop of launches
-    cc_all = list(cc_cam.values()) + cc_bf16 + [c for c in many if c["variant"] == "cuda_core"]
-    cc_err = max(c["max_abs_err"] if "max_abs_err" in c else c["max_abs_err_out"] for c in cc_all)
+    cc_err = max([c["max_abs_err"] for c in cc_cam.values()] + [many["f32_d24"]["max_abs_err_out"]]
+                 + [c["errors"]["dq"]["max_abs"] for c in any_d.values()])
     table["kernels"].append(dict(
         name="attn_cc_fwd", route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
         replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=sum(f32_launches.values()),
@@ -2253,13 +2392,14 @@ def main(argv=None):
         per="one GT-pose forward of nested-giant-large (B=2: 4 launches at (2, 16, 6, 6) D=96)",
         design="CUDA cores, templated on fp32 / bf16 and ceil(D/32) output columns a lane: one CTA per (b*h, 8 query "
                "rows), K/V tiles of 64 through shared memory, one warp per query row, online softmax with expf",
-        note="every _flash_kernel instance the wgmma kernel does not take (fp32 any D, bf16 D != 64, D <= 256); "
-             "ms, plain_ms and library_ms (SDPA on the same fp32 inputs) are device time from torch.profiler",
+        note="the _flash_kernel instances in fp32 (any D <= 256; bf16 goes to the wgmma forward, and this kernel's "
+             "bf16 instance is timed beside it in the any-D rows); ms, plain_ms and library_ms (SDPA on the same "
+             "fp32 inputs) are device time from torch.profiler",
         cam_enc_large_token_rel_l2=cam_large_err, gt_pose=pose_res, shapes=list(f32_cases.values()),
         cc_cases=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"]["fwd"],
                        bound_ms=c["bound_ms"]["fwd"],
                        bound_by=c["bound_by"]["fwd"], library_ms=c["library_ms"]["fwd"])
-                  for c in list(cc_cam.values()) + cc_bf16]))
+                  for c in cc_cam.values()]))
     cam, cam_dev = cc_cam["cam_enc_large_b1"], f32_cases["cam_enc_large_b1"]
     for kind, fn_name, line in (("dq", "attn_cc_bwd_dq", 185), ("dkv", "attn_cc_bwd_dkv", 231)):
         n = sum(pose_bwd_launches[f"attention_bwd_{kind}_cuda_core"].values())
@@ -2280,11 +2420,51 @@ def main(argv=None):
                  "rows; max_abs_err is over every CUDA-core case",
             gt_pose_backward=pose_bwd,
             shapes=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"][kind],
-                         device_ms=f32_cases[c["name"]][f"{kind}_ms"] if c["name"] in f32_cases else None,
-                         bound_ms=c["bound_ms"][kind],
+                         device_ms=f32_cases[c["name"]][f"{kind}_ms"], bound_ms=c["bound_ms"][kind],
                          bound_by=c["bound_by"][kind], errors=c["errors"], plain_ms=c["plain_ms"],
-                         library_ms=c["library_ms"]["bwd"]) for c in list(cc_cam.values()) + cc_bf16],
-            many_heads=[c for c in many if c["variant"] == "cuda_core"]))
+                         library_ms=c["library_ms"]["bwd"]) for c in cc_cam.values()]
+            + [dict(name=c["name"], shape=c["shape"], dtype="bfloat16", kv_len=c["kv_len"], scale=c["scale"],
+                    ms=c["ms"][kind], bound_ms=c["bound_ms"][kind], bound_by=c["bound_by"][kind],
+                    errors=c["errors"], plain_ms=c["plain_ms"]["bwd"], library_ms=c["library_ms"]["bwd"])
+               for c in any_d.values() if c["routes"][kind] == "cuda_core"],
+            many_heads=[many["f32_d24"]] + [c for c in many.values() if c["routes"][kind] == "cuda_core"
+                                             and c is not many["f32_d24"]]))
+    # the wgmma forward and dk/dv at head dims other than 64 (bf16): no config of either package builds them, so the
+    # main path launches them 0 times; their numbers are the headline case's, (1, 4, 4326, 128), one call each, and
+    # the launches through flash_attention are counted in each case (any_d_case)
+    head = any_d[ANY_D_HEADLINE]
+    for kind, fn_name, line, routed in (("fwd", "flash_attn_fwd_any_d", 54, "flash_attention_fwd"),
+                                        ("dkv", "flash_bwd_dkv_any_d", 231, "flash_attention_bwd_dkv")):
+        cases = [c for c in any_d.values() if c["routes"][kind] == "wgmma"]
+        err_key = "max_abs_err_out" if kind == "fwd" else None
+        table["kernels"].append(dict(
+            name=fn_name, route="cuda",
+            source="recondet3d_torch/csrc/" + ("flash_attn_fwd.cu" if kind == "fwd" else "flash_attn_bwd.cu"),
+            replaces=f"recondet3d/ops/attention.py:{line}", status="ported+checked",
+            launches=0,  # the main path's every launch is at D = 64: d64_launches fails the run otherwise
+            max_abs_err=max(c[err_key] if err_key else max(c["errors"][g]["max_abs"] for g in ("dk", "dv"))
+                            for c in cases),
+            ms=head["ms"][kind], plain_ms=head["plain_ms"]["fwd" if kind == "fwd" else "bwd"],
+            bound_ms=head["bound_ms"][kind], bound_by=head["bound_by"][kind],
+            exp_floor_ms=head["exp_floor_ms"], cuda_core_ms=head["cuda_core_ms"][kind],
+            library_ms=head["library_ms"]["fwd" if kind == "fwd" else "bwd"],
+            per="one call at (1, 4, 4326, 128) bf16", wrapper=routed,
+            design="wgmma + TMA + mbarriers, a template on ceil(D/64) 64-column chunks: "
+                   + ("two consumer warpgroups and 128-key tiles at D <= 64, 64-key tiles at D <= 128, one consumer "
+                      "warpgroup a CTA past 128" if kind == "fwd" else
+                      "two consumer warpgroups of 64 keys at D <= 64, one at D <= 128 (D > 128 on the CUDA cores)"),
+            note="cuda_core_ms: the CUDA-core kernel this replaces, on the same inputs in this call; library_ms: SDPA "
+                 + ("forward" if kind == "fwd" else "backward alone (dq, dk and dv)") + "; plain_ms: "
+                 + ("attention_plain" if kind == "fwd" else "attention_bwd_plain (dq, dk and dv)")
+                 + "; max_abs_err: " + ("out" if kind == "fwd" else "dk and dv") + " over every case, the bf16 gate "
+                 "scales it by max(1, |value|)",
+            shapes=[dict(name=c["name"], shape=c["shape"], kv_len=c["kv_len"], scale=c["scale"], ms=c["ms"][kind],
+                         cuda_core_ms=c["cuda_core_ms"][kind], bound_ms=c["bound_ms"][kind],
+                         bound_by=c["bound_by"][kind], exp_floor_ms=c["exp_floor_ms"],
+                         library_ms=c["library_ms"]["fwd" if kind == "fwd" else "bwd"], errors=c["errors"],
+                         max_abs_err_out=c["max_abs_err_out"], max_abs_err_lse=c["max_abs_err_lse"])
+                    for c in any_d.values()],
+            many_heads=[many["bf16_d128"]]))
     table["kernels"][0]["launches_finetune_steps"] = sum(ft_launches["fwd"].values())
     table["kernels"][0]["launches_train_steps"] = sum(tr_launches["fwd"].values())
     table["kernels"][1]["launches_finetune_steps"] = sum(ft_launches["fps"].values())

@@ -1,9 +1,14 @@
 // Attention on the CUDA cores for Hopper (sm_90a), forward and backward: every
 // instance of the Pallas TPU kernels `_flash_kernel`, `_flash_bwd_dq_kernel`
 // and `_flash_bwd_dkv_kernel` (recondet3d/ops/attention.py:54, 185, 231) that
-// the wgmma kernels (bf16, D = 64: csrc/flash_attn_fwd.cu, flash_attn_bwd.cu)
-// do not take: fp32 at any head dim (the camera encoder's trunk, CameraEnc:
-// 16 heads of dim_out / 16, D = 24 to 96) and bf16 at any head dim but 64.
+// the wgmma kernels (csrc/flash_attn_fwd.cu: bf16 forward at any D;
+// flash_attn_bwd.cu: bf16 dq at D = 64, bf16 dk/dv at D <= 128) do not take:
+// fp32 at any head dim (the camera encoder's trunk, CameraEnc: 16 heads of
+// dim_out / 16, D = 24 to 96), bf16 dq at any head dim but 64 and bf16 dk/dv
+// at D > 128. Its bf16 forward at any D and bf16 dk/dv at D <= 128 stay
+// callable (ops/attention.py attention_fwd_cuda_core,
+// attention_bwd_dkv_cuda_core) as the CUDA-core time the wgmma kernels are
+// held against; no routed call reaches them.
 // D runs from 1 to 256, N and M from 1 up, B*H up to the 2^31 - 1 CTAs of a
 // one-dimensional grid (the heads are folded into grid.x with the row tiles).
 //

@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 in / bf16 out, D = 64.
+// Flash-attention backward for Hopper (sm_90a), bf16 in / bf16 out: dq at
+// D = 64, dk/dv at any D from 8 to 128 that is a multiple of 8
+// (ops/attention.py pads other D with zero columns and slices the outputs).
 //
 // Replaces the Pallas TPU kernels `_flash_bwd_dq_kernel`
 // (recondet3d/ops/attention.py:185) and `_flash_bwd_dkv_kernel` (:231). With
@@ -64,7 +66,22 @@
 // consumer thread and spills, a third stage gains nothing, and
 // issuing tile j+1's S^T and dP^T behind tile j's dV and dK inside a
 // warpgroup ran slower than letting the two warpgroups interleave.
-// Tensor maps are 3-D (64, rows, B*H): Q/dO rows >= N read as zeros and are
+// D > 64 (DC = ceil(D / 64) = 2 chunks of 64 columns, hopper_common.cuh): K
+// and V stay resident as DC tiles each, Q, dO and Qs stream as DC tiles a
+// stage, S^T and dP^T sum over the chunks (four k16 steps each), and dV_c +=
+// P^T dO_c, dK_c += dS^T Q_c keep one pair of 64 x 64 accumulators a chunk:
+// 2 DC 32 registers a thread, 128 at DC = 2. ptxas allocates under the cap of
+// the launch bounds (168 a thread for 384 threads, whatever setmaxnreg gives
+// later), so DC = 2 runs one consumer warpgroup of 64 keys in a CTA of 256
+// threads (a cap of 255), and forms P^T and dS^T together once both products
+// are in (S^T and dP^T die as they are packed) rather than P^T under dP^T's
+// product, which holds S^T, dP^T, P^T and the accumulators at once. DC = 3
+// and 4 would hold 192 and 256 accumulator registers a thread, with S^T and
+// dP^T 256 and 320, past the 255 a thread can have: D > 128 stays on
+// csrc/attn_cuda_core.cu. Without EDGE (D = 64 DC) the row pitch is a
+// constant and the DC = 1 instance is the D = 64 kernel as it was; EDGE
+// instances store only the columns < D.
+// Tensor maps are 3-D (D, rows, B*H): Q/dO rows >= N read as zeros and are
 // masked with p = 0 by a select, as are keys >= kv_len (so exp(s - lse) of a
 // padded column never counts whatever lse is). Key tiles wholly past kv_len
 // write zeros and exit. dK takes its trailing scale in fp32.
@@ -332,59 +349,82 @@ using hopper::mbar_arrive_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::pack_a;
+using hopper::pack_bf16;
 using hopper::ROW_BYTES;
-using hopper::tma_load_rows;
+using hopper::tma_load_box;
 using hopper::wgmma_commit;
 using hopper::wgmma_fence;
 using hopper::wgmma_m64n64_rs_bt;
 using hopper::wgmma_m64n64_ss;
 using hopper::wgmma_wait;
 
-constexpr int CONSUMERS = 2;             // consumer warpgroups of 64 keys
 constexpr int STAGES = 2;                // Q/dO ring depth
-constexpr int BLOCK_K = 64 * CONSUMERS;  // key rows per CTA
 constexpr int BLOCK_Q = 64;              // queries per Q/dO tile
-constexpr int NTHREADS = 128 * (CONSUMERS + 1);
-// registers per thread after setmaxnreg, within the 64K of one CTA per SM
+// registers per thread after setmaxnreg (two consumers), within the 64K of one CTA per SM
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr uint32_t TILE_BYTES = 64 * ROW_BYTES;
+constexpr uint32_t TILE_BYTES = 64 * ROW_BYTES;  // one 64-column chunk of 64 rows
+constexpr uint64_t TILE_DESC = TILE_BYTES >> 4;  // descriptor step from chunk to chunk
+constexpr int MAX_DC = 2;                        // D <= 128
+constexpr int MAX_SMEM = 232448;                 // an H100 block's dynamic shared memory
 
+// consumer warpgroups of 64 keys for DC 64-column chunks: two at DC = 1; one at DC = 2, in a CTA of 256 threads,
+// whose launch bounds let ptxas allocate the 128 accumulator registers and S^T and dP^T beside them (under the 168
+// of 384 threads it spilled 1,000 bytes)
+template <int DC>
+struct DkvCfg {
+  static constexpr int CONSUMERS = DC == 1 ? 2 : 1;
+  static constexpr int BLOCK_K = 64 * CONSUMERS;  // key rows per CTA
+  static constexpr int NTHREADS = 128 * (CONSUMERS + 1);
+};
+
+template <int DC>
 struct alignas(1024) Smem {
-  bf16 k[CONSUMERS][64 * 64];
-  bf16 v[CONSUMERS][64 * 64];
-  bf16 q[STAGES][BLOCK_Q * 64];
-  bf16 dout[STAGES][BLOCK_Q * 64];
-  bf16 qs[STAGES][BLOCK_Q * 64];  // bf16(q * scale); loaded only when the scale is no power of two
+  static constexpr int CONSUMERS = DkvCfg<DC>::CONSUMERS;
+  bf16 k[CONSUMERS][DC][64 * 64];
+  bf16 v[CONSUMERS][DC][64 * 64];
+  bf16 q[STAGES][DC][BLOCK_Q * 64];
+  bf16 dout[STAGES][DC][BLOCK_Q * 64];
+  bf16 qs[STAGES][DC][BLOCK_Q * 64];  // bf16(q * scale); loaded only when the scale is no power of two
   float lse[STAGES][BLOCK_Q];
   float delta[STAGES][BLOCK_Q];
   uint64_t kv_full;
   uint64_t full[STAGES], empty[STAGES];
 };
-constexpr int SMEM_BYTES = sizeof(Smem) + 1024;
+template <int DC>
+constexpr int smem_bytes() {
+  return sizeof(Smem<DC>) + 1024;
+}
+static_assert(smem_bytes<1>() <= MAX_SMEM && smem_bytes<MAX_DC>() <= MAX_SMEM,
+              "a dk/dv instance asks for more shared memory than an H100 block has");
 
-__global__ void __launch_bounds__(NTHREADS, 1)
+// DC: 64-column chunks of the head dim (1 or 2); EDGE: D < 64 * DC (the last chunk partly zeros)
+template <int DC, bool EDGE>
+__global__ void __launch_bounds__(DkvCfg<DC>::NTHREADS, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_qs,
                          const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                          const float* __restrict__ delta, const int* __restrict__ kv_len, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int H, int N, int M, float mul, float scale, int separate_qs) {
+                         bf16* __restrict__ dv, int H, int N, int M, int D, float mul, float scale, int separate_qs) {
+  constexpr int CONSUMERS = DkvCfg<DC>::CONSUMERS, BLOCK_K = DkvCfg<DC>::BLOCK_K, NTHREADS = DkvCfg<DC>::NTHREADS;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(hopper::align_1024(smem_raw));
+  Smem<DC>& sm = *reinterpret_cast<Smem<DC>*>(hopper::align_1024(smem_raw));
+  const int pitch = EDGE ? D : 64 * DC;  // a constant without EDGE
   const int tiles = (M + BLOCK_K - 1) / BLOCK_K;  // B*H folded into grid.x with the key tiles
   const int bh = blockIdx.x / tiles;
   const int k0 = (blockIdx.x % tiles) * BLOCK_K;
-  const size_t ko = static_cast<size_t>(bh) * M * 64;
+  const size_t ko = static_cast<size_t>(bh) * M * pitch;
   const int kv_lim = kv_len ? min(M, max(kv_len[bh / H], 0)) : M;
 
   if (k0 >= kv_lim) {
     // no query attends to these keys: their gradients are zero
     const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    for (int idx = threadIdx.x; idx < BLOCK_K * 8; idx += NTHREADS) {
-      const int r = k0 + idx / 8, ch = idx % 8;
+    const int row16 = pitch / 8;  // 16-byte pieces of a row
+    for (int idx = threadIdx.x; idx < BLOCK_K * row16; idx += NTHREADS) {
+      const int r = k0 + idx / row16, ch = idx % row16;
       if (r < M) {
-        *reinterpret_cast<uint4*>(dk + ko + static_cast<size_t>(r) * 64 + ch * 8) = z;
-        *reinterpret_cast<uint4*>(dv + ko + static_cast<size_t>(r) * 64 + ch * 8) = z;
+        *reinterpret_cast<uint4*>(dk + ko + static_cast<size_t>(r) * pitch + ch * 8) = z;
+        *reinterpret_cast<uint4*>(dv + ko + static_cast<size_t>(r) * pitch + ch * 8) = z;
       }
     }
     return;
@@ -404,16 +444,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (wg == CONSUMERS) {
     // producer: its first warp streams the query tiles, the other three leave
-    hopper::regs_dealloc<PRODUCER_REGS>();
+    if constexpr (CONSUMERS > 1) hopper::regs_dealloc<PRODUCER_REGS>();
     if (threadIdx.x / 32 == 4 * CONSUMERS) {
       const int lane = threadIdx.x % 32;
       if (lane == 0) {
         hopper::prefetch_map(&tm_q);
         hopper::prefetch_map(&tm_do);
-        mbar_arrive_expect_tx(&sm.kv_full, 2 * CONSUMERS * TILE_BYTES);
+        mbar_arrive_expect_tx(&sm.kv_full, 2 * CONSUMERS * DC * TILE_BYTES);
         for (int w = 0; w < CONSUMERS; ++w) {
-          tma_load_rows(sm.k[w], &tm_k, &sm.kv_full, k0 + 64 * w, bh);
-          tma_load_rows(sm.v[w], &tm_v, &sm.kv_full, k0 + 64 * w, bh);
+#pragma unroll
+          for (int ch = 0; ch < DC; ++ch) {
+            tma_load_box(sm.k[w][ch], &tm_k, &sm.kv_full, 64 * ch, k0 + 64 * w, bh);
+            tma_load_box(sm.v[w][ch], &tm_v, &sm.kv_full, 64 * ch, k0 + 64 * w, bh);
+          }
         }
       }
       const float* lse_bh = lse + static_cast<size_t>(bh) * N;
@@ -428,113 +471,176 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
         hopper::cp_async_arrive_noinc(&sm.full[s]);
         if (lane == 0) {
-          mbar_arrive_expect_tx(&sm.full[s], (separate_qs ? 3 : 2) * TILE_BYTES);
-          tma_load_rows(sm.q[s], &tm_q, &sm.full[s], q0, bh);
-          tma_load_rows(sm.dout[s], &tm_do, &sm.full[s], q0, bh);
-          if (separate_qs) tma_load_rows(sm.qs[s], &tm_qs, &sm.full[s], q0, bh);
+          mbar_arrive_expect_tx(&sm.full[s], (separate_qs ? 3 : 2) * DC * TILE_BYTES);
+#pragma unroll
+          for (int ch = 0; ch < DC; ++ch) {
+            tma_load_box(sm.q[s][ch], &tm_q, &sm.full[s], 64 * ch, q0, bh);
+            tma_load_box(sm.dout[s][ch], &tm_do, &sm.full[s], 64 * ch, q0, bh);
+            if (separate_qs) tma_load_box(sm.qs[s][ch], &tm_qs, &sm.full[s], 64 * ch, q0, bh);
+          }
         }
       }
     }
   } else {
-    hopper::regs_alloc<CONSUMER_REGS>();
+    if constexpr (CONSUMERS > 1) hopper::regs_alloc<CONSUMER_REGS>();
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
     const int g = lane / 4, c = lane % 4;
     const int key0 = k0 + 64 * wg + 16 * warp + g;  // this thread's keys: key0 and key0 + 8
     const bool key_ok[2] = {key0 < kv_lim, key0 + 8 < kv_lim};
     const float k_log2 = mul * LOG2E;
-    const uint64_t k_desc = desc_sw128(sm.k[wg]), v_desc = desc_sw128(sm.v[wg]);
+    const uint64_t k_desc = desc_sw128(sm.k[wg][0]), v_desc = desc_sw128(sm.v[wg][0]);
 
-    float st[32], dpt[32], dk_acc[32], dv_acc[32];
+    float st[32], dpt[32], dk_acc[DC][32], dv_acc[DC][32];
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int ch = 0; ch < DC; ++ch)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[ch][i] = dv_acc[ch][i] = 0.f;
 
     mbar_wait(&sm.kv_full, 0);
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % STAGES, q0 = j * BLOCK_Q;
       mbar_wait(&sm.full[s], (j / STAGES) & 1);
-      const uint64_t q_desc = desc_sw128(sm.q[s]);
-      const uint64_t qk_desc = separate_qs ? desc_sw128(sm.qs[s]) : q_desc;
-      const uint64_t do_desc = desc_sw128(sm.dout[s]);
+      const uint64_t q_desc = desc_sw128(sm.q[s][0]);
+      const uint64_t qk_desc = separate_qs ? desc_sw128(sm.qs[s][0]) : q_desc;
+      const uint64_t do_desc = desc_sw128(sm.dout[s][0]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)  // S^T = K Qs^T: 64 keys x 64 queries
-        wgmma_m64n64_ss(st, k_desc + kk * DESC_K16_COLS, qk_desc + kk * DESC_K16_COLS, kk);
+      for (int ch = 0; ch < DC; ++ch)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // S^T = K Qs^T: 64 keys x 64 queries, summed over the chunks
+          wgmma_m64n64_ss(st, k_desc + ch * TILE_DESC + kk * DESC_K16_COLS,
+                          qk_desc + ch * TILE_DESC + kk * DESC_K16_COLS, 4 * ch + kk);
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)  // dP^T = V dO^T
-        wgmma_m64n64_ss(dpt, v_desc + kk * DESC_K16_COLS, do_desc + kk * DESC_K16_COLS, kk);
+      for (int ch = 0; ch < DC; ++ch)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dP^T = V dO^T
+          wgmma_m64n64_ss(dpt, v_desc + ch * TILE_DESC + kk * DESC_K16_COLS,
+                          do_desc + ch * TILE_DESC + kk * DESC_K16_COLS, 4 * ch + kk);
       wgmma_commit();
 
       const bool edge = q0 + BLOCK_Q > N;
-      wgmma_wait<1>();
-      fence_regs(st);
+      if constexpr (DC == 1) {
+        // P^T while dP^T is in flight, then dS^T
+        wgmma_wait<1>();
+        fence_regs(st);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {  // P^T; this thread's query columns are 8i + 2c + {0, 1}
-        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[s][8 * i + 2 * c]);
-        const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+        for (int i = 0; i < 8; ++i) {  // P^T; this thread's query columns are 8i + 2c + {0, 1}
+          const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[s][8 * i + 2 * c]);
+          const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
 #pragma unroll
-        for (int e = 4 * i; e < 4 * i + 4; ++e) {
-          const bool keep = key_ok[(e / 2) % 2] && (!edge || q0 + 8 * i + 2 * c + (e % 2) < N);
-          st[e] = keep ? ex2(fmaf(st[e], k_log2, nl[e % 2])) : 0.f;
+          for (int e = 4 * i; e < 4 * i + 4; ++e) {
+            const bool keep = key_ok[(e / 2) % 2] && (!edge || q0 + 8 * i + 2 * c + (e % 2) < N);
+            st[e] = keep ? ex2(fmaf(st[e], k_log2, nl[e % 2])) : 0.f;
+          }
+        }
+        pack_a<4>(pa, st);
+        wgmma_wait<0>();
+        fence_regs(dpt);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {  // dS^T
+          const float2 d2 = *reinterpret_cast<const float2*>(&sm.delta[s][8 * i + 2 * c]);
+          const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+          for (int e = 4 * i; e < 4 * i + 4; ++e) st[e] *= dpt[e] - dl[e % 2];
+        }
+        pack_a<4>(da, st);
+      } else {
+        // 64 more accumulator registers a chunk: P^T and dS^T are formed together once both products are in,
+        // each pair of scores packed as soon as it is made, so S^T and dP^T die as P^T and dS^T grow
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {  // this thread's query columns are 8i + 2c + {0, 1}
+          const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[s][8 * i + 2 * c]);
+          const float2 d2 = *reinterpret_cast<const float2*>(&sm.delta[s][8 * i + 2 * c]);
+          const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E}, dl[2] = {d2.x, d2.y};
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool keep = key_ok[(e / 2) % 2] && (!edge || q0 + 8 * i + 2 * c + (e % 2) < N);
+            p[e] = keep ? ex2(fmaf(st[4 * i + e], k_log2, nl[e % 2])) : 0.f;
+            ds[e] = p[e] * (dpt[4 * i + e] - dl[e % 2]);
+          }
+          pa[i / 2][2 * (i % 2)] = pack_bf16(p[0], p[1]);
+          pa[i / 2][2 * (i % 2) + 1] = pack_bf16(p[2], p[3]);
+          da[i / 2][2 * (i % 2)] = pack_bf16(ds[0], ds[1]);
+          da[i / 2][2 * (i % 2) + 1] = pack_bf16(ds[2], ds[3]);
         }
       }
-      pack_a<4>(pa, st);
-      wgmma_wait<0>();
-      fence_regs(dpt);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {  // dS^T
-        const float2 d2 = *reinterpret_cast<const float2*>(&sm.delta[s][8 * i + 2 * c]);
-        const float dl[2] = {d2.x, d2.y};
-#pragma unroll
-        for (int e = 4 * i; e < 4 * i + 4; ++e) st[e] *= dpt[e] - dl[e % 2];
-      }
-      pack_a<4>(da, st);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_rs_bt(dv_acc, pa[kk], do_desc + kk * DESC_K16_ROWS, 1);  // dV += P^T dO
+      for (int ch = 0; ch < DC; ++ch)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_m64n64_rs_bt(dk_acc, da[kk], q_desc + kk * DESC_K16_ROWS, 1);  // dK += dS^T Q
+        for (int kk = 0; kk < 4; ++kk)  // dV_c += P^T dO_c
+          wgmma_m64n64_rs_bt(dv_acc[ch], pa[kk], do_desc + ch * TILE_DESC + kk * DESC_K16_ROWS, 1);
+#pragma unroll
+      for (int ch = 0; ch < DC; ++ch)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dK_c += dS^T Q_c
+          wgmma_m64n64_rs_bt(dk_acc[ch], da[kk], q_desc + ch * TILE_DESC + kk * DESC_K16_ROWS, 1);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dk_acc);
-      fence_regs(dv_acc);
+#pragma unroll
+      for (int ch = 0; ch < DC; ++ch) {
+        fence_regs(dk_acc[ch]);
+        fence_regs(dv_acc[ch]);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&sm.empty[s]);
     }
-    hopper::store_acc_rows(dk + ko, dk_acc, key0, M, c, scale);
-    hopper::store_acc_rows(dv + ko, dv_acc, key0, M, c, 1.f);
+#pragma unroll
+    for (int ch = 0; ch < DC; ++ch) {
+      hopper::store_acc_chunk<EDGE>(dk + ko, dk_acc[ch], key0, M, c, scale, pitch, 64 * ch, D);
+      hopper::store_acc_chunk<EDGE>(dv + ko, dv_acc[ch], key0, M, c, 1.f, pitch, 64 * ch, D);
+    }
   }
 }
 
-}  // namespace dkv
-
-// q (and qs = bf16(q * scale) when it is a separate tensor), dout: (B*H, N, 64)
-// bf16; k, v, dk, dv: (B*H, M, 64) bf16; lse, delta: (B*H, N) fp32; kv_len (B,)
-// int32 or null; mul: the fp32 multiplier of qs k^T; scale: dk's trailing scale
-extern "C" int flash_attn_bwd_dkv_bf16_d64(const void* q, const void* qs, const void* k, const void* v,
-                                           const void* dout, const void* lse, const void* delta, const void* kv_len,
-                                           void* dk, void* dv, int B, int H, int N, int M, float mul, float scale,
-                                           void* stream) {
+template <int DC, bool EDGE>
+int launch_dkv(const void* q, const void* qs, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, const void* kv_len, void* dk, void* dv, int B, int H, int N, int M, int D, float mul,
+               float scale, cudaStream_t stream) {
+  constexpr int SMEM_BYTES = smem_bytes<DC>(), BLOCK_K = DkvCfg<DC>::BLOCK_K, NTHREADS = DkvCfg<DC>::NTHREADS;
   CUtensorMap tm_q, tm_qs, tm_k, tm_v, tm_do;
   const int separate_qs = qs != q;
-  int err = hopper::make_row_map(&tm_q, q, N, B * H, dkv::BLOCK_Q);
-  if (!err && separate_qs) err = hopper::make_row_map(&tm_qs, qs, N, B * H, dkv::BLOCK_Q);
+  int err = hopper::make_row_map(&tm_q, q, N, B * H, BLOCK_Q, D);
+  if (!err && separate_qs) err = hopper::make_row_map(&tm_qs, qs, N, B * H, BLOCK_Q, D);
   if (!separate_qs) tm_qs = tm_q;  // never read by the kernel
-  if (!err) err = hopper::make_row_map(&tm_k, k, M, B * H, 64);
-  if (!err) err = hopper::make_row_map(&tm_v, v, M, B * H, 64);
-  if (!err) err = hopper::make_row_map(&tm_do, dout, N, B * H, dkv::BLOCK_Q);
+  if (!err) err = hopper::make_row_map(&tm_k, k, M, B * H, 64, D);
+  if (!err) err = hopper::make_row_map(&tm_v, v, M, B * H, 64, D);
+  if (!err) err = hopper::make_row_map(&tm_do, dout, N, B * H, BLOCK_Q, D);
   if (err) return err;
   static std::atomic<uint32_t> smem_allowed{0};
-  err = hopper::allow_dynamic_smem(dkv::flash_bwd_dkv_kernel, dkv::SMEM_BYTES, smem_allowed);
+  err = hopper::allow_dynamic_smem(flash_bwd_dkv_kernel<DC, EDGE>, SMEM_BYTES, smem_allowed);
   if (err) return err;
-  const unsigned grid = hopper::grid_1d(M, dkv::BLOCK_K, B * H);
+  const unsigned grid = hopper::grid_1d(M, BLOCK_K, B * H);
   if (!grid) return static_cast<int>(cudaErrorInvalidValue);
-  dkv::flash_bwd_dkv_kernel<<<grid, dkv::NTHREADS, dkv::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dkv_kernel<DC, EDGE><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
       tm_q, tm_qs, tm_k, tm_v, tm_do, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<hopper::bf16*>(dk), static_cast<hopper::bf16*>(dv), H, N, M, mul, scale,
+      static_cast<const int*>(kv_len), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, N, M, D, mul, scale,
       separate_qs);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace dkv
+
+// q (and qs = bf16(q * scale) when it is a separate tensor), dout: (B*H, N, D) bf16; k, v, dk, dv: (B*H, M, D)
+// bf16, D a multiple of 8 from 8 to 128; lse, delta: (B*H, N) fp32; kv_len (B,) int32 or null; mul: the fp32
+// multiplier of qs k^T; scale: dk's trailing scale
+extern "C" int flash_attn_bwd_dkv_bf16(const void* q, const void* qs, const void* k, const void* v, const void* dout,
+                                       const void* lse, const void* delta, const void* kv_len, void* dk, void* dv,
+                                       int B, int H, int N, int M, int D, float mul, float scale, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return dkv::launch_dkv<1, false>(q, qs, k, v, dout, lse, delta, kv_len, dk, dv, B, H, N, M, D, mul, scale, s);
+  if (D == 128)
+    return dkv::launch_dkv<2, false>(q, qs, k, v, dout, lse, delta, kv_len, dk, dv, B, H, N, M, D, mul, scale, s);
+  if (D < 8 || D > 64 * dkv::MAX_DC || D % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 64)
+    return dkv::launch_dkv<1, true>(q, qs, k, v, dout, lse, delta, kv_len, dk, dv, B, H, N, M, D, mul, scale, s);
+  return dkv::launch_dkv<2, true>(q, qs, k, v, dout, lse, delta, kv_len, dk, dv, B, H, N, M, D, mul, scale, s);
+}

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the flash-attention forward and dK/dV
-// kernels: TMA tensor maps of (rows, 64) bf16 matrices, mbarrier waits and
-// arrivals, TMA tile loads, 4-byte cp.async copies that arrive on an mbarrier,
-// wgmma descriptors of 128-byte-swizzled tiles and the three wgmma shapes the
-// kernels issue, fences, named barriers and setmaxnreg.
+// kernels: TMA tensor maps of (rows, D) bf16 matrices read in 64-column chunks,
+// mbarrier waits and arrivals, TMA tile loads, 4-byte cp.async copies that
+// arrive on an mbarrier, wgmma descriptors of 128-byte-swizzled tiles and the
+// three wgmma shapes the kernels issue, fences, named barriers and setmaxnreg.
 //
 // Tiles in shared memory are rows of 64 bf16 = 128 bytes, written by TMA under
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits at chunk
@@ -11,11 +11,18 @@
 // layout type 1 (128-byte swizzle) and 1,024 bytes between 8-row groups;
 // a 16-wide step along the 128-byte row (K-major operand) adds 32 bytes to the
 // start address, a 16-row step (MN-major operand, transpose bit set) 2,048.
+// A head dim D > 64 is held as ceil(D / 64) such tiles, one per 64-column
+// chunk: chunk c holds columns [64 c, 64 c + 64) and is loaded by a box at
+// column coordinate 64 c.
 //
 // Tensor maps are built on the host with cuTensorMapEncodeTiled, found
 // through cudaGetDriverEntryPoint, so the libraries need no -lcuda. They are
-// 3-D (64, rows, matrices): a box that runs past one matrix's last row reads
-// zeros, never the next matrix's rows.
+// 3-D (D, rows, matrices): a box that runs past one matrix's last row reads
+// zeros, never the next matrix's rows, and a box that runs past column D
+// reads zeros, never the next row's first columns. Zero columns add nothing to
+// q . k, and the kernels store no output column >= D, so a chunk that is
+// partly past D is exact. TMA takes a global row stride that is a multiple of
+// 16 bytes: D must be a multiple of 8 (ops/attention.py pads other D).
 
 #pragma once
 
@@ -31,7 +38,7 @@ namespace hopper {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int ROW_BYTES = 128;  // one row of 64 bf16
+constexpr int ROW_BYTES = 128;  // one row of a tile in shared memory: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -56,13 +63,17 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// `matrices` (rows, 64) bf16 matrices one after another from `base`, read in
-// boxes of box_rows x 64; returns a cudaError_t value (0 on success)
-static int make_row_map(CUtensorMap* map, const void* base, int rows, int matrices, int box_rows) {
+// `matrices` (rows, cols) bf16 matrices one after another from `base`, read in
+// boxes of box_rows x 64 (cols a multiple of 8, 64 by default); returns a
+// cudaError_t value (0 on success)
+static int make_row_map(CUtensorMap* map, const void* base, int rows, int matrices, int box_rows, int cols = 64) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(matrices)};
-  const cuuint64_t strides[2] = {ROW_BYTES, static_cast<cuuint64_t>(rows) * ROW_BYTES};
+  if (cols < 1 || cols % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * sizeof(bf16);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(matrices)};
+  const cuuint64_t strides[2] = {row_bytes, static_cast<cuuint64_t>(rows) * row_bytes};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
@@ -148,13 +159,20 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-// rows [row, row + box_rows) of matrix `matrix` of a row map into `dst`; completes bytes on `bar`
-__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int row, int matrix) {
+// columns [col, col + 64) of rows [row, row + box_rows) of matrix `matrix` of a row map into `dst`;
+// completes the box's bytes on `bar` (zeros included)
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, uint64_t* bar, int col, int row,
+                                             int matrix) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
           smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(matrix)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(matrix)
       : "memory");
+}
+
+// the first 64 columns of rows [row, row + box_rows) of matrix `matrix`
+__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar, int row, int matrix) {
+  tma_load_box(dst, map, bar, 0, row, matrix);
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -293,18 +311,27 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[K][4], const float (&d)[K *
   }
 }
 
-// rows g and g + 8 of a warp's 16 rows of a 64 x 64 accumulator, times `mul`,
-// as bf16 into rows row0 and row0 + 8 of a (nrows, 64) matrix
-__device__ __forceinline__ void store_acc_rows(bf16* m, const float (&d)[32], int row0, int nrows, int c, float mul) {
+// rows g and g + 8 of a warp's 16 rows of a 64 x 64 accumulator, times `mul`, as bf16 into rows row0 and
+// row0 + 8 of columns [col0, col0 + 64) of a (nrows, pitch) matrix; with EDGE, columns >= ncols (a multiple of 8)
+// are not stored
+template <bool EDGE>
+__device__ __forceinline__ void store_acc_chunk(bf16* m, const float (&d)[32], int row0, int nrows, int c, float mul,
+                                                int pitch, int col0, int ncols) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
     if (row < nrows) {
-      uint32_t* dst = reinterpret_cast<uint32_t*>(m + static_cast<size_t>(row) * 64 + 2 * c);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(m + static_cast<size_t>(row) * pitch + col0 + 2 * c);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dst[4 * i] = pack_bf16(d[4 * i + 2 * h] * mul, d[4 * i + 2 * h + 1] * mul);
+      for (int i = 0; i < 8; ++i)
+        if (!EDGE || col0 + 8 * i < ncols) dst[4 * i] = pack_bf16(d[4 * i + 2 * h] * mul, d[4 * i + 2 * h + 1] * mul);
     }
   }
+}
+
+// the same into a (nrows, 64) matrix
+__device__ __forceinline__ void store_acc_rows(bf16* m, const float (&d)[32], int row0, int nrows, int c, float mul) {
+  store_acc_chunk<false>(m, d, row0, nrows, c, mul, 64, 0, 64);
 }
 
 }  // namespace hopper

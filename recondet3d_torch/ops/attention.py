@@ -24,7 +24,7 @@ and at D = 64 one ex2 per score on the MUFU (16 a clock per SM) costs about
 as much as the products, so the softmax has to run under the products.
 None of them lets the (N, M) scores reach device memory, and none uses
 atomics, so gradients are the same bits from run to run. The ragged N and M
-edges and ``kv_len`` are masked in the kernels; nothing is padded on the host.
+edges and ``kv_len`` are masked in the kernels.
 
 The three kernels (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``,
 building blocks in ``csrc/hopper_common.cuh``) are Hopper kernels: a
@@ -39,7 +39,19 @@ other's products. The dq kernel (``csrc/flash_attn_bwd.cu``
 ``flash_bwd_dq_kernel``) has the forward's shape: a producer streams K and V
 tiles by TMA, and consumer warpgroups of 64 query rows run S and dP on
 ``wgmma`` from shared memory and dQ += dS K with dS from registers, taking
-turns on named barriers.
+turns on named barriers. The forward and the dk/dv kernel are templates on
+the number of 64-column chunks of the head dim (DC = ceil(D / 64)): each
+chunk is its own swizzled tile, the score products sum over the chunks and
+the output keeps one 64 x 64 accumulator a chunk. The forward takes D up to
+256 (DC = 4), dk/dv up to 128 (DC = 2: its dK and dV accumulators take 64
+registers a thread a chunk).
+
+Head dims that are not a multiple of 8. A TMA row stride is a multiple of
+16 bytes, so the wrappers pad q, k, v (and dO) with zero columns to the
+next multiple of 8 (``tma_cols``), pass the scale of the original D
+(D^-0.5 by default), and slice the outputs: zero columns add nothing to
+q . k and give zero output columns, so this is exact. The pad and the
+slice are part of the wrapper's call and of its time.
 
 The scale: ``score_operand`` hands the kernels raw q and the scale as an
 fp32 multiplier of the scores when the scale is a power of two (every call
@@ -54,20 +66,24 @@ the reference the kernels are checked against on the card.
 Every other dtype and head dim. The JAX package runs ``_flash_kernel`` and
 its backward at any D, and in fp32 for the camera encoder's trunk
 (GT-pose conditioning: 16 heads of dim_out / 16, D = 24 to 96, one token a
-view). ``csrc/attn_cuda_core.cu`` holds those instances: a forward, a dq
-and a dk/dv kernel on the CUDA cores (fp32 products, no TF32), templated on
-the element type (fp32, bf16) and taking any D from 1 to 256, with the
-roundings of the plain versions (for bf16 inputs qs, P and dS rounded to
-bf16 before the second products).
+view). ``csrc/attn_cuda_core.cu`` holds a forward, a dq and a dk/dv kernel
+on the CUDA cores (fp32 products, no TF32), templated on the element type
+(fp32, bf16) and taking any D from 1 to 256, with the roundings of the
+plain versions (for bf16 inputs qs, P and dS rounded to bf16 before the
+second products).
 
-Which kernel a CUDA call runs is decided by dtype and head dim alone
-(``kernel_variant``): bf16 with D = 64 (every DA3 trunk) goes to the wgmma
-kernels, fp32 and bf16 with any other D up to 256 to the CUDA-core family,
-and anything else (fp16, fp64, D > 256; no config of either package builds
-them) raises. This is routing by shape, not a fallback: a bf16 D = 64 call
-never reaches the CUDA-core kernels, and no call on a CUDA tensor reaches a
-plain version. Every kernel folds B*H into grid.x with its row tiles, so
-B*H has no limit of its own.
+Which kernel a CUDA call runs is decided for each of the three kernels by
+dtype and head dim alone (``kernel_variant``): bf16 forward at any D from 1
+to 256, bf16 dq at D = 64 and bf16 dk/dv at D <= 128 on the wgmma kernels;
+bf16 dq at other D, bf16 dk/dv at D > 128 and everything in fp32 on the
+CUDA-core family; anything else (fp16, fp64, D > 256; no config of either
+package builds them) raises. This is routing by shape, not a fallback: a
+call never reaches a kernel its route does not name, and no call on a CUDA
+tensor reaches a plain version. The bf16 CUDA-core forward and dk/dv stay
+callable through their wrappers (``attention_fwd_cuda_core``,
+``attention_bwd_dkv_cuda_core``) for the comparisons on the card. Every
+kernel folds B*H into grid.x with its row tiles, so B*H has no limit of its
+own.
 """
 
 from __future__ import annotations
@@ -90,6 +106,7 @@ __all__ = [
     "attention_bwd_dq_cuda_core",
     "attention_bwd_dkv_cuda_core",
     "kernel_variant",
+    "tma_cols",
     "flash_attention_bwd",
     "flash_attention_bwd_dq",
     "flash_attention_bwd_dkv",
@@ -99,9 +116,12 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-_HEAD_DIM = 64
-MAX_HEAD_DIM = 256  # the CUDA-core kernels' limit (the JAX kernels take any D; no preset goes past 96)
+MAX_HEAD_DIM = 256  # the limit of the forward kernels (the JAX kernels take any D; no preset goes past 96)
+WGMMA_DQ_HEAD_DIM = 64  # the head dim of the wgmma dq kernel
+WGMMA_DKV_MAX_HEAD_DIM = 128  # the wgmma dk/dv kernel takes D up to this
+KERNELS = ("fwd", "dq", "dkv")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_COL_MULTIPLE = 8  # a TMA row stride is a multiple of 16 bytes: 8 bf16
 
 
 def attention_plain(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -131,14 +151,16 @@ def score_operand(q, scale: float) -> Tuple[torch.Tensor, float]:
     return (q.float() * scale).to(q.dtype), 1.0
 
 
-def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None):
+def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None, out_dtype=None):
     """Gradients (dq, dk, dv) of ``attention_plain``'s ``out`` from explicit
     formulae, with the roundings of the kernels (no-ops on fp32 inputs): the
     scale goes into q in fp32 and is rounded to the input dtype before
     q k^T; P and dS are rounded to it before the second products; the
     trailing scale of dq and dk is applied in fp32. ``out`` and ``lse`` are
     what the forward returned; a key at index >= kv_len[b] gets p = 0
-    whatever ``lse`` is."""
+    whatever ``lse`` is. The gradients come in the input dtype, or in
+    ``out_dtype`` (fp32: the sums before their last rounding, a reference
+    that a kernel's own rounding is held to)."""
     dt = q.dtype
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     qs = (q.float() * scale).to(dt).float()
@@ -154,20 +176,21 @@ def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None):
     ds = (p * (torch.einsum("bhnd,bhmd->bhnm", dof, vf) - delta[..., None])).to(dt).float()
     dq = torch.einsum("bhnm,bhmd->bhnd", ds, kf) * scale
     dk = torch.einsum("bhnm,bhnd->bhmd", ds, q.float()) * scale
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    od = dt if out_dtype is None else out_dtype
+    return dq.to(od), dk.to(od), dv.to(od)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "flash_attn_fwd_bf16_d64": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "flash_attn_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
     "flash_attn_bwd_dq_bf16_d64": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
-    "flash_attn_bwd_dkv_bf16_d64": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
+    "flash_attn_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_P],
     "attn_cc_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "attn_cc_bwd_dq": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
     "attn_cc_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
 }
-_LIBRARY = {"flash_attn_fwd_bf16_d64": "flash_attn_fwd", "flash_attn_bwd_dq_bf16_d64": "flash_attn_bwd",
-            "flash_attn_bwd_dkv_bf16_d64": "flash_attn_bwd", "attn_cc_fwd": "attn_cuda_core",
+_LIBRARY = {"flash_attn_fwd_bf16": "flash_attn_fwd", "flash_attn_bwd_dq_bf16_d64": "flash_attn_bwd",
+            "flash_attn_bwd_dkv_bf16": "flash_attn_bwd", "attn_cc_fwd": "attn_cuda_core",
             "attn_cc_bwd_dq": "attn_cuda_core", "attn_cc_bwd_dkv": "attn_cuda_core"}
 
 
@@ -181,22 +204,23 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _check_kernel_inputs(what: str, variant: str, q, k, v, kv_len, scale, like_q=(), row_stats=()):
-    """``variant`` 'bf16_d64' takes bf16, D = 64, contiguous 16-byte aligned
-    (B, H, N, D) tensors; 'cuda_core' fp32 or bf16 with any D up to
-    ``MAX_HEAD_DIM``, contiguous. All on one CUDA device; anything else
-    raises. ``like_q``: (name, tensor) pairs that must match q in shape and
-    dtype; ``row_stats``: (name, tensor) pairs that must be fp32 (B, H, N).
-    Returns (B, H, N, M, D, kv_len as int32 or None, scale as float)."""
+def _check_kernel_inputs(what: str, dtypes, max_d: int, q, k, v, kv_len, scale, like_q=(), row_stats=(),
+                         only_d=None, align=1):
+    """Takes contiguous (B, H, N, D) tensors of one of ``dtypes`` with D
+    from 1 to ``max_d`` (or D = ``only_d``), ``align``-byte aligned, all on
+    one CUDA device; anything else raises. ``like_q``: (name, tensor) pairs
+    that must match q in shape and dtype; ``row_stats``: (name, tensor) pairs
+    that must be fp32 (B, H, N). Returns (B, H, N, M, D, kv_len as int32 or
+    None, scale as float)."""
     if any(t.device != q.device for t in (k, v)) or q.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {q.device}/{k.device}/{v.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype != q.dtype:
             raise ValueError(f"{what} takes (B, H, N, D) tensors of one dtype; {name} is {t.dtype} {tuple(t.shape)}")
-    if variant == "bf16_d64" and (q.dtype != torch.bfloat16 or q.shape[-1] != _HEAD_DIM):
-        raise ValueError(f"{what} kernel takes bf16 (B, H, N, {_HEAD_DIM}); q is {q.dtype} {tuple(q.shape)}")
-    if variant == "cuda_core" and (q.dtype not in _DTYPE_CODE or not 1 <= q.shape[-1] <= MAX_HEAD_DIM):
-        raise ValueError(f"{what} kernel takes fp32 or bf16 with D <= {MAX_HEAD_DIM}; q is {q.dtype} "
+    d = q.shape[-1]
+    if q.dtype not in dtypes or not (d == only_d if only_d is not None else 1 <= d <= max_d):
+        dims = f"D = {only_d}" if only_d is not None else f"D from 1 to {max_d}"
+        raise ValueError(f"{what} kernel takes {' or '.join(str(t) for t in dtypes)} with {dims}; q is {q.dtype} "
                          f"{tuple(q.shape)}")
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -210,7 +234,6 @@ def _check_kernel_inputs(what: str, variant: str, q, k, v, kv_len, scale, like_q
         if t.device != q.device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what} kernel takes {name} as {dtype} {tuple(shape)} on {q.device}; "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    align = 16 if variant == "bf16_d64" else 1
     for name, t in [("q", q), ("k", k), ("v", v)] + [(n, t) for n, t, _, _ in more]:
         if not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"{what} kernel takes contiguous {align}-byte aligned tensors; {name} is not")
@@ -219,6 +242,23 @@ def _check_kernel_inputs(what: str, variant: str, q, k, v, kv_len, scale, like_q
             raise ValueError(f"kv_len must be ({B},) on {q.device}; got {tuple(kv_len.shape)} on {kv_len.device}")
         kv_len = kv_len.to(torch.int32).contiguous()
     return B, H, N, M, D, kv_len, D ** -0.5 if scale is None else float(scale)
+
+
+def tma_cols(head_dim: int) -> int:
+    """The head dim the wgmma kernels are launched at: ``head_dim`` rounded
+    up to a multiple of 8 (a TMA row stride is a multiple of 16 bytes)."""
+    return -(-head_dim // _TMA_COL_MULTIPLE) * _TMA_COL_MULTIPLE
+
+
+def _pad_cols(t, cols: int):
+    """``t`` with zero columns appended up to ``cols`` (``t`` itself when it
+    has that many)."""
+    return t if t.shape[-1] == cols else F.pad(t, (0, cols - t.shape[-1]))
+
+
+def _cut_cols(t, cols: int):
+    """The first ``cols`` columns of ``t``, contiguous."""
+    return t if t.shape[-1] == cols else t[..., :cols].contiguous()
 
 
 def _launch(wrapper, name: str, tensors, ints, floats, device, key):
@@ -235,19 +275,23 @@ def _launch(wrapper, name: str, tensors, ints, floats, device, key):
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
-def kernel_variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernels that take CUDA inputs of this dtype and head dim:
-    'bf16_d64' (``csrc/flash_attn_fwd.cu`` and ``flash_attn_bwd.cu``, wgmma:
-    bf16 with D = 64, every DA3 trunk) or 'cuda_core'
-    (``csrc/attn_cuda_core.cu``: fp32 with any D from 1 to 256, bf16 with any
-    other D up to 256; the camera encoder's trunk is fp32). Raises
-    ValueError for anything else (fp16, fp64, D > 256)."""
-    if dtype == torch.bfloat16 and head_dim == _HEAD_DIM:
-        return "bf16_d64"
-    if dtype in _DTYPE_CODE and 1 <= head_dim <= MAX_HEAD_DIM:
+def kernel_variant(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
+    """The kernel that takes CUDA inputs of this dtype and head dim for
+    ``kernel`` ('fwd', 'dq' or 'dkv'): 'wgmma' (``csrc/flash_attn_fwd.cu``,
+    ``flash_attn_bwd.cu``: the bf16 forward at any D from 1 to 256, the
+    bf16 dq at D = 64, the bf16 dk/dv at D up to 128) or 'cuda_core'
+    (``csrc/attn_cuda_core.cu``: fp32 at any D from 1 to 256, the other bf16
+    dq and dk/dv; the camera encoder's trunk is fp32). Raises ValueError for
+    anything else (fp16, fp64, D > 256)."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown attention kernel {kernel!r}: one of {KERNELS}")
+    if dtype not in _DTYPE_CODE or not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: fp32 and bf16 take D from 1 "
+                         f"to {MAX_HEAD_DIM}")
+    if dtype == torch.float32:
         return "cuda_core"
-    raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: fp32 and bf16 take D from 1 "
-                     f"to {MAX_HEAD_DIM}")
+    wgmma = {"fwd": True, "dq": head_dim == WGMMA_DQ_HEAD_DIM, "dkv": head_dim <= WGMMA_DKV_MAX_HEAD_DIM}[kernel]
+    return "wgmma" if wgmma else "cuda_core"
 
 
 def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -255,21 +299,26 @@ def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor,
     (B, H, N) fp32).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes bf16, D = 64 and contiguous (B, H, N, D) inputs; anything
-    else raises. ``kv_len`` (B,) masks keys at index >= kv_len[b] and must
-    be >= 1. Each kernel launch adds one to ``flash_attention_fwd.launches``
-    and to ``flash_attention_fwd.launches_by_shape[(B, H, N, M)]``; call
+    which takes bf16 contiguous 16-byte aligned (B, H, N, D) inputs with D
+    from 1 to 256 (padded to ``tma_cols(D)`` columns here when D is no
+    multiple of 8); anything else raises. ``kv_len`` (B,) masks keys at
+    index >= kv_len[b] and must be >= 1. Each kernel launch adds one to
+    ``flash_attention_fwd.launches`` and to
+    ``flash_attention_fwd.launches_by_shape[(B, H, N, M, D)]``; call
     ``reset_launch_counts()`` to set both to zero.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
-    B, H, N, M, _, kv_len, scale = _check_kernel_inputs("flash_attention_fwd", "bf16_d64", q, k, v, kv_len, scale)
+    B, H, N, M, D, kv_len, scale = _check_kernel_inputs("flash_attention_fwd", (torch.bfloat16,), MAX_HEAD_DIM,
+                                                        q, k, v, kv_len, scale, align=16)
     qk, mul = score_operand(q, scale)
-    out = torch.empty_like(q)
+    cols = tma_cols(D)
+    qk, k, v = (_pad_cols(t, cols) for t in (qk, k, v))
+    out = torch.empty((B, H, N, cols), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    _launch(flash_attention_fwd, "flash_attn_fwd_bf16_d64", (qk, k, v, kv_len, out, lse), (B, H, N, M), (mul,),
-            q.device, (B, H, N, M))
-    return out, lse
+    _launch(flash_attention_fwd, "flash_attn_fwd_bf16", (qk, k, v, kv_len, out, lse), (B, H, N, M, cols), (mul,),
+            q.device, (B, H, N, M, D))
+    return _cut_cols(out, D), lse
 
 
 def _cc_score_operand(q, scale: float) -> Tuple[torch.Tensor, float]:
@@ -293,8 +342,8 @@ def attention_fwd_cuda_core(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Ten
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
-    B, H, N, M, D, kv_len, scale = _check_kernel_inputs("attention_fwd_cuda_core", "cuda_core", q, k, v, kv_len,
-                                                        scale)
+    B, H, N, M, D, kv_len, scale = _check_kernel_inputs("attention_fwd_cuda_core", tuple(_DTYPE_CODE), MAX_HEAD_DIM,
+                                                        q, k, v, kv_len, scale)
     qk, mul = _cc_score_operand(q, scale)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
@@ -309,50 +358,58 @@ def attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch
     what none takes)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
-    fwd = flash_attention_fwd if kernel_variant(q.dtype, q.shape[-1]) == "bf16_d64" else attention_fwd_cuda_core
+    fwd = flash_attention_fwd if kernel_variant(q.dtype, q.shape[-1], "fwd") == "wgmma" else attention_fwd_cuda_core
     return fwd(q, k, v, kv_len, scale)
 
 
-def _check_bwd_inputs(what, variant, q, k, v, dout, lse, delta, kv_len, scale):
-    return _check_kernel_inputs(what, variant, q, k, v, kv_len, scale, like_q=(("dout", dout),),
-                                row_stats=(("lse", lse), ("delta", delta)))
+def _check_bwd_inputs(what, dtypes, max_d, q, k, v, dout, lse, delta, kv_len, scale, **kw):
+    return _check_kernel_inputs(what, dtypes, max_d, q, k, v, kv_len, scale, like_q=(("dout", dout),),
+                                row_stats=(("lse", lse), ("delta", delta)), **kw)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, scale=None) -> torch.Tensor:
-    """dq (B, H, N, D) bf16 from the wgmma dq kernel: one CTA per 128 query
+    """dq (B, H, N, 64) bf16 from the wgmma dq kernel: one CTA per 128 query
     rows (two warpgroups of 64), looping over the keys. CUDA tensors only
-    (``flash_attention_bwd`` takes CPU tensors to the plain version);
-    ``delta`` (B, H, N) fp32 is rowsum(dout * out). Counts its launches like
-    ``flash_attention_fwd``."""
-    B, H, N, M, _, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", "bf16_d64", q, k, v, dout, lse,
-                                                     delta, kv_len, scale)
+    (``flash_attention_bwd`` takes CPU tensors to the plain version), bf16
+    with D = 64; ``delta`` (B, H, N) fp32 is rowsum(dout * out). Counts its
+    launches like ``flash_attention_fwd``."""
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", (torch.bfloat16,), MAX_HEAD_DIM, q,
+                                                     k, v, dout, lse, delta, kv_len, scale,
+                                                     only_d=WGMMA_DQ_HEAD_DIM, align=16)
     qk, mul = score_operand(q, scale)
     dq = torch.empty_like(q)
     _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16_d64", (qk, k, v, dout, lse, delta, kv_len, dq),
-            (B, H, N, M), (mul, scale), q.device, (B, H, N, M))
+            (B, H, N, M), (mul, scale), q.device, (B, H, N, M, D))
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=None, scale=None):
     """(dk, dv) (B, H, M, D) bf16 from the wgmma dk/dv kernel: one CTA per
     128 key rows (two warpgroups of 64), looping over the queries; keys at
-    index >= kv_len[b] get zeros. CUDA tensors only. Counts its launches
-    like ``flash_attention_fwd``."""
-    B, H, N, M, _, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", "bf16_d64", q, k, v, dout, lse,
-                                                     delta, kv_len, scale)
+    index >= kv_len[b] get zeros. CUDA tensors only, bf16 with D from 1 to
+    ``WGMMA_DKV_MAX_HEAD_DIM`` (padded to ``tma_cols(D)`` columns here when
+    D is no multiple of 8). Counts its launches like
+    ``flash_attention_fwd``."""
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", (torch.bfloat16,),
+                                                     WGMMA_DKV_MAX_HEAD_DIM, q, k, v, dout, lse, delta, kv_len,
+                                                     scale, align=16)
     qk, mul = score_operand(q, scale)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(flash_attention_bwd_dkv, "flash_attn_bwd_dkv_bf16_d64", (q, qk, k, v, dout, lse, delta, kv_len, dk, dv),
-            (B, H, N, M), (mul, scale), q.device, (B, H, N, M))
-    return dk, dv
+    cols = tma_cols(D)
+    qp = _pad_cols(q, cols)
+    qk = qp if qk is q else _pad_cols(qk, cols)  # the kernel loads a separate bf16(q * scale) only when it is one
+    k, v, dout = (_pad_cols(t, cols) for t in (k, v, dout))
+    dk, dv = (torch.empty((B, H, M, cols), dtype=q.dtype, device=q.device) for _ in range(2))
+    _launch(flash_attention_bwd_dkv, "flash_attn_bwd_dkv_bf16", (qp, qk, k, v, dout, lse, delta, kv_len, dk, dv),
+            (B, H, N, M, cols), (mul, scale), q.device, (B, H, N, M, D))
+    return _cut_cols(dk, D), _cut_cols(dv, D)
 
 
 def attention_bwd_dq_cuda_core(q, k, v, dout, lse, delta, kv_len=None, scale=None) -> torch.Tensor:
     """dq (B, H, N, D) in q's dtype from the CUDA-core dq kernel: one warp a
     query row, looping over tiles of 32 keys. CUDA tensors only; fp32 or
     bf16 with D up to 256. Launches counted under (B, H, N, M, D)."""
-    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("attention_bwd_dq_cuda_core", "cuda_core", q, k, v, dout, lse,
-                                                     delta, kv_len, scale)
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("attention_bwd_dq_cuda_core", tuple(_DTYPE_CODE), MAX_HEAD_DIM,
+                                                     q, k, v, dout, lse, delta, kv_len, scale)
     qk, mul = _cc_score_operand(q, scale)
     dq = torch.empty_like(q)
     _launch(attention_bwd_dq_cuda_core, "attn_cc_bwd_dq", (qk, k, v, dout, lse, delta, kv_len, dq),
@@ -365,8 +422,8 @@ def attention_bwd_dkv_cuda_core(q, k, v, dout, lse, delta, kv_len=None, scale=No
     one warp a key row, looping over tiles of 32 queries; keys at index >=
     kv_len[b] get zeros. CUDA tensors only. Launches counted under (B, H,
     N, M, D)."""
-    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("attention_bwd_dkv_cuda_core", "cuda_core", q, k, v, dout,
-                                                     lse, delta, kv_len, scale)
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("attention_bwd_dkv_cuda_core", tuple(_DTYPE_CODE),
+                                                     MAX_HEAD_DIM, q, k, v, dout, lse, delta, kv_len, scale)
     qk, mul = _cc_score_operand(q, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(attention_bwd_dkv_cuda_core, "attn_cc_bwd_dkv", (q, qk, k, v, dout, lse, delta, kv_len, dk, dv),
@@ -380,19 +437,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_len=None, scale=None):
     ``out``.
 
     CPU tensors take ``attention_bwd_plain``. CUDA tensors launch the dq and
-    the dk/dv kernel that ``kernel_variant`` names (the wgmma pair for bf16
-    D = 64, the CUDA-core pair for fp32 and other head dims; anything else
-    raises, never the plain version)."""
+    the dk/dv kernel that ``kernel_variant`` names for each (bf16: the wgmma
+    dq at D = 64 and the wgmma dk/dv at D <= 128, the CUDA-core ones
+    otherwise; fp32: the CUDA-core pair; anything else raises, never the
+    plain version)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, kv_len, scale)
     if out.shape != q.shape or out.device != q.device or dout.device != q.device:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} on {out.device}, dout on {dout.device}, "
                          f"q {tuple(q.shape)} on {q.device}")
+    D = q.shape[-1]
+    dq_fn = flash_attention_bwd_dq if kernel_variant(q.dtype, D, "dq") == "wgmma" else attention_bwd_dq_cuda_core
+    dkv_fn = flash_attention_bwd_dkv if kernel_variant(q.dtype, D, "dkv") == "wgmma" else attention_bwd_dkv_cuda_core
     delta = (dout.float() * out.float()).sum(dim=-1)
-    if kernel_variant(q.dtype, q.shape[-1]) == "bf16_d64":
-        dq_fn, dkv_fn = flash_attention_bwd_dq, flash_attention_bwd_dkv
-    else:
-        dq_fn, dkv_fn = attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core
     dq = dq_fn(q, k, v, dout, lse, delta, kv_len, scale)
     dk, dv = dkv_fn(q, k, v, dout, lse, delta, kv_len, scale)
     return dq, dk, dv
@@ -438,9 +495,11 @@ def flash_attention(q, k, v, kv_len=None, scale=None, impl: str = "auto") -> tor
     impl: 'auto' runs the kernels on CUDA tensors (forward, and the two
     backward kernels when a gradient flows) and the plain versions on CPU
     tensors; 'plain' forces ``attention_plain`` under autograd (the
-    reference runs). On CUDA, bf16 with D = 64 goes to the wgmma kernels and
-    fp32 or bf16 with any other D up to 256 to the CUDA-core kernels,
-    forward and backward (``kernel_variant``); other inputs raise ValueError.
+    reference runs). On CUDA each of the forward, dq and dk/dv kernels is
+    the one ``kernel_variant`` names for the dtype and head dim (bf16: the
+    wgmma forward at any D up to 256, wgmma dq at D = 64, wgmma dk/dv at D
+    up to 128, the CUDA-core kernels for the rest; fp32: the CUDA-core
+    family); other inputs raise ValueError.
     """
     if impl == "plain":
         return attention_plain(q, k, v, kv_len, scale)[0]

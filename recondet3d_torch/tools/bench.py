@@ -64,10 +64,8 @@ def attention_kernel_flops() -> float:
     backward)."""
     from recondet3d_torch.ops.attention import attention_fwd_cuda_core, flash_attention_fwd
 
-    total = sum(4.0 * B * H * N * M * 64 * n for (B, H, N, M), n in flash_attention_fwd.launches_by_shape.items())
-    total += sum(4.0 * B * H * N * M * D * n
-                 for (B, H, N, M, D), n in attention_fwd_cuda_core.launches_by_shape.items())
-    return total
+    return sum(4.0 * B * H * N * M * D * n for wrapper in (flash_attention_fwd, attention_fwd_cuda_core)
+               for (B, H, N, M, D), n in wrapper.launches_by_shape.items())
 
 
 def build(size: dict, seed: int, device):

@@ -180,9 +180,12 @@ def _gate(got, ref, dtype):
 @pytest.mark.parametrize("dtype,D", [(torch.float32, d) for d in (1, 20, 24, 64, 96, 128, 256)]
                          + [(torch.bfloat16, d) for d in (20, 32, 96, 128, 256)])
 def test_cuda_core_kernels_match_plain(dtype, D, use_kv_len):
-    """Forward, dq and dk/dv on the CUDA cores against the plain versions on
-    the same inputs, through the dispatcher and autograd; same bits run to
-    run; the wgmma kernels never launched."""
+    """Forward, dq and dk/dv against the plain versions on the same inputs,
+    through the dispatcher and autograd; same bits run to run. fp32 runs all
+    three on the CUDA cores and never a wgmma kernel; bf16 runs its dq there
+    (and dk/dv at D > 128), its forward and its dk/dv at D <= 128 on the
+    wgmma kernels (tests/test_torch_attention_wgmma_any_d.py holds those at
+    more shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     B, H, N, M = 2, 3, 77, 140
@@ -195,17 +198,20 @@ def test_cuda_core_kernels_match_plain(dtype, D, use_kv_len):
     again = torch.autograd.grad(flash_attention(*leaves, kv_len=kvl), leaves, g)
     torch.cuda.synchronize()
     key = (B, H, N, M, D)
-    for wrapper in (attention_fwd_cuda_core, attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core):
-        assert wrapper.launches_by_shape == {key: 2}
-    for wrapper in (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv):
-        assert wrapper.launches == 0
+    wgmma = {kind: tattn.kernel_variant(dtype, D, kind) == "wgmma" for kind in ("fwd", "dq", "dkv")}
+    for kind, on_cores, on_wgmma in (("fwd", attention_fwd_cuda_core, flash_attention_fwd),
+                                     ("dq", attention_bwd_dq_cuda_core, flash_attention_bwd_dq),
+                                     ("dkv", attention_bwd_dkv_cuda_core, flash_attention_bwd_dkv)):
+        assert on_wgmma.launches_by_shape == ({key: 2} if wgmma[kind] else {}), kind
+        assert on_cores.launches_by_shape == ({} if wgmma[kind] else {key: 2}), kind
+    assert dtype == torch.bfloat16 or not any(wgmma.values())
     ref_out, ref_lse = attention_plain(q, k, v, kvl)
     if dtype == torch.bfloat16:  # the kernels' scores: bf16(q * scale) k^T
         qs = (q.float() * D ** -0.5).to(dtype)
         ref_out = attention_plain(qs.float(), k.float(), v.float(), kvl, 1.0)[0]
     gate = _gate(out, ref_out, dtype)
     assert gate[0], gate
-    _, lse = attention_fwd_cuda_core(q, k, v, kvl)
+    _, lse = tattn.attention_fwd(q, k, v, kvl)
     ref = attention_bwd_plain(q, k, v, out.detach(), lse, g, kvl)
     for name, a, r, b in zip(("dq", "dk", "dv"), grads, ref, again):
         gate = _gate(a, r, dtype)
@@ -213,7 +219,7 @@ def test_cuda_core_kernels_match_plain(dtype, D, use_kv_len):
 
 
 # (B, H, N, D) with B * H = 65,552 > 65,535, the most grid.y takes
-_MANY_HEADS = [("bf16_d64", (4097, 16, 64, 64), torch.bfloat16), ("cuda_core", (4097, 16, 6, 24), torch.float32)]
+_MANY_HEADS = [("wgmma", (4097, 16, 64, 64), torch.bfloat16), ("cuda_core", (4097, 16, 6, 24), torch.float32)]
 
 
 def _worst_head(got, ref, scale=None):
@@ -233,7 +239,7 @@ def test_cuda_kernels_take_more_than_65535_heads(variant, shape, dtype):
     B, H, N, D = shape
     q, k, v, g = _cuda_inputs(shape, N, seed=3, dtype=dtype)
     reset_launch_counts()
-    fwd = flash_attention_fwd if variant == "bf16_d64" else attention_fwd_cuda_core
+    fwd = flash_attention_fwd if variant == "wgmma" else attention_fwd_cuda_core
     out, lse = fwd(q, k, v)
     got = flash_attention_bwd(q, k, v, out, lse, g)
     torch.cuda.synchronize()

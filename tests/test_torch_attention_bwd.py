@@ -230,8 +230,8 @@ def test_cuda_backward_kernels_match_plain(B, H, N, M, kv_len, scale, loud):
     got = flash_attention_bwd(q, k, v, out, lse, g, kvl, scale)
     torch.cuda.synchronize()
     assert flash_attention_bwd_dq.launches == 1 and flash_attention_bwd_dkv.launches == 1
-    assert flash_attention_bwd_dq.launches_by_shape == {(B, H, N, M): 1}
-    assert flash_attention_bwd_dkv.launches_by_shape == {(B, H, N, M): 1}
+    assert flash_attention_bwd_dq.launches_by_shape == {(B, H, N, M, 64): 1}
+    assert flash_attention_bwd_dkv.launches_by_shape == {(B, H, N, M, 64): 1}
     ref = attention_bwd_plain(q, k, v, out, lse, g, kvl, scale)
     quiet, noisy = torch.from_numpy(~heads).cuda(), torch.from_numpy(heads).cuda()
     for name, a, r in zip(("dq", "dk", "dv"), got, ref):

@@ -29,9 +29,11 @@ def test_bench_runs_at_tiny_size_on_the_cpu(capsys):
 
 def test_attention_kernel_flops_count_every_launch():
     attention.reset_launch_counts()
-    attention.flash_attention_fwd.launches_by_shape[(2, 24, 721, 721)] = 3
+    attention.flash_attention_fwd.launches_by_shape[(2, 24, 721, 721, 64)] = 3
+    attention.flash_attention_fwd.launches_by_shape[(1, 4, 721, 721, 96)] = 2
     attention.attention_fwd_cuda_core.launches_by_shape[(2, 16, 6, 6, 96)] = 4
     try:
-        assert bench.attention_kernel_flops() == 3 * 4.0 * 2 * 24 * 721 * 721 * 64 + 4 * 4.0 * 2 * 16 * 6 * 6 * 96
+        assert bench.attention_kernel_flops() == (3 * 4.0 * 2 * 24 * 721 * 721 * 64 + 2 * 4.0 * 4 * 721 * 721 * 96
+                                                  + 4 * 4.0 * 2 * 16 * 6 * 6 * 96)
     finally:
         attention.reset_launch_counts()

@@ -100,23 +100,27 @@ def test_fp32_dispatch_on_cpu_runs_the_plain_version_and_launches_nothing():
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
-    (torch.bfloat16, 64, "bf16_d64"),
-    *[(torch.float32, d, "cuda_core") for d in (8, 24, 48, 64, 96, 128)],
-    # taken since the CUDA-core family holds any D up to 256, in fp32 and in bf16 (but 64)
-    (torch.float32, 20, "cuda_core"), (torch.float32, 136, "cuda_core"), (torch.float32, 4, "cuda_core"),
-    (torch.bfloat16, 96, "cuda_core"),
-    *[(torch.float32, d, "cuda_core") for d in (1, 256)],
-    *[(torch.bfloat16, d, "cuda_core") for d in (1, 20, 32, 63, 65, 128, 256)],
+    (torch.bfloat16, 64, ("wgmma", "wgmma", "wgmma")),
+    *[(torch.float32, d, ("cuda_core",) * 3) for d in (8, 24, 48, 64, 96, 128)],
+    # the CUDA-core family holds fp32 at any D up to 256; bf16 runs the wgmma forward at any D up to 256, the wgmma
+    # dk/dv up to 128 and the wgmma dq at 64 only
+    (torch.float32, 20, ("cuda_core",) * 3), (torch.float32, 136, ("cuda_core",) * 3),
+    (torch.float32, 4, ("cuda_core",) * 3),
+    (torch.bfloat16, 96, ("wgmma", "cuda_core", "wgmma")),
+    *[(torch.float32, d, ("cuda_core",) * 3) for d in (1, 256)],
+    *[(torch.bfloat16, d, ("wgmma", "cuda_core", "wgmma")) for d in (1, 20, 32, 63, 65, 128)],
+    *[(torch.bfloat16, d, ("wgmma", "cuda_core", "cuda_core")) for d in (129, 256)],
 ])
 def test_kernel_variant_takes(dtype, D, variant):
-    assert kernel_variant(dtype, D) == variant
+    assert tuple(kernel_variant(dtype, D, kernel) for kernel in ("fwd", "dq", "dkv")) == variant
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float64, 64), (torch.float32, 264),
                                      (torch.bfloat16, 264), (torch.float32, 0), (torch.float16, 32)])
 def test_kernel_variant_raises(dtype, D):
-    with pytest.raises(ValueError, match="no attention kernel"):
-        kernel_variant(dtype, D)
+    for kernel in ("fwd", "dq", "dkv"):
+        with pytest.raises(ValueError, match="no attention kernel"):
+            kernel_variant(dtype, D, kernel)
 
 
 def test_fp32_kernel_wrapper_refuses_what_it_does_not_take():
