@@ -10,10 +10,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
             (one nvcc per source, started together); per kernel the ptxas
             registers, spills and shared memory, and the Hopper kernels'
             wgmma / TMA instructions counted in the SASS (``cuobjdump``). Fails on a spill or an ignored
-            ``setmaxnreg`` in any instance of the forward (<DC, EDGE>: DC =
-            1-4 64-column chunks, EDGE a last chunk partly past D), the dq
-            kernel or the dk/dv kernel (DC = 1-2), or if one has no HGMMA or
-            no TMA load; launches the FPS kernel once on a small
+            ``setmaxnreg`` in any instance of the forward, the dq or the
+            dk/dv kernel (<DC, EDGE>: DC = 1-4 64-column chunks, EDGE a last
+            chunk partly past D), or if one has no HGMMA or no TMA load;
+            launches the FPS kernel once on a small
             cloud and fails unless it ran with its cluster dimension (16).
 3. kernel   the flash-attention kernel vs its plain PyTorch version (fp32
             math on the same bf16 values) at the DA3 nested-giant-large
@@ -85,15 +85,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
             camera encoders' shapes; same bits run to run; times beside the
             bound, the plain versions and SDPA. Then bf16 at the head dims no
             DA3 trunk has, (1, 4, N, D) at D in {32, 96, 128, 20} and N in
-            {721, 4326}, D in {16, 48, 160, 256} at 4,326, one case with
-            ``kv_len`` and one at scale 0.1, through ``flash_attention``: the
-            wgmma forward and dk/dv (the CUDA-core dk/dv past D = 128) and the
-            CUDA-core dq, launches counted, under the bf16 gates, same bits run
-            to run; times beside the bound, the exp floor, the plain versions,
-            SDPA forward and backward and the CUDA-core forward and dk/dv the
-            wgmma kernels replace. Then B*H = 65,552 > 65,535 for the wgmma
-            kernels (bf16 D=64), the wgmma forward and dk/dv at D = 128 and
-            the CUDA-core family (fp32).
+            {721, 4326}, D in {16, 48, 160, 192, 256} at 4,326, one case with
+            ``kv_len`` and two at scale 0.1 (D = 128, 256), through
+            ``flash_attention``: the wgmma forward, dq and dk/dv, launches
+            counted (none on the CUDA cores), under the bf16 gates, same bits
+            run to run; the bf16 CUDA-core forward, dq and dk/dv, which no call
+            is routed to, held to the same references; times beside the bound,
+            the exp floor, the plain versions, SDPA forward and backward and
+            the CUDA-core kernels the wgmma kernels replace. Then B*H = 65,552
+            > 65,535 for the wgmma kernels (bf16 D=64), the wgmma kernels at
+            D = 128 and the CUDA-core family (fp32).
 12. finetune ``Trainer`` with ``frozen_patterns=()`` on
             ``build_resdet3d("da3-large", freeze_da3=False)``: fp32 master
             parameters, bf16 compute, every ViT block under checkpointing
@@ -148,7 +149,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 ``scratch_tree/``) adds one phase after phase 7: the FPS kernel on this run's
 FPS cases, the dq and dk/dv kernels at the fine-tuning shapes, the flash
 forward at the request's shapes, bf16 attention at D in {32, 96, 128, 20}
-(forward and dk/dv on the kernels each tree routes them to), the fp32
+and {160, 256} (forward, dq and dk/dv on the kernels each tree routes them
+to), the fp32
 attention forward at the camera encoders' shapes (device time) and five
 main-path requests, timed by ``recondet3d_torch/tools/kernel_times.py`` in
 four processes, the earlier tree's and this tree's in turns (parent, change,
@@ -287,13 +289,15 @@ FT_DEPTH_HEAD_SCALE = 0.1
 MIN_POINTS = 1000  # a train step's scene must keep at least this many points, or max_depth is set from the depth
 
 # the CUDA-core attention family (csrc/attn_cuda_core.cu) in fp32 at CAM_SHAPES, forward and backward. bf16 at head
-# dims no DA3 trunk has, at the trunks' token counts: the wgmma forward (any D) and dk/dv (D <= 128) with the CUDA-core
-# dq, beside the CUDA-core forward and dk/dv they replace; (B, H, N, D), kv_len, scale
+# dims no DA3 trunk has, at the trunks' token counts: the wgmma forward, dq and dk/dv, beside the CUDA-core kernels
+# they replace; (B, H, N, D), kv_len, scale
 ANY_D_CASES = {f"bf16_d{d}_n{n}": ((1, 4, n, d), None, None) for d in (32, 96, 128, 20) for n in (721, S * 721)}
-ANY_D_CASES.update({f"bf16_d{d}_n{S * 721}": ((1, 4, S * 721, d), None, None) for d in (16, 48, 160, 256)})
+ANY_D_CASES.update({f"bf16_d{d}_n{S * 721}": ((1, 4, S * 721, d), None, None) for d in (16, 48, 160, 192, 256)})
 ANY_D_CASES.update({"bf16_d96_n4326_kv_len": ((2, 4, S * 721, 96), [2911, S * 721], None),
-                    "bf16_d128_n4326_scale_0.1": ((1, 4, S * 721, 128), None, 0.1)})
-ANY_D_HEADLINE = "bf16_d128_n4326"  # the kernel table's row: (1, 4, 4326, 128)
+                    "bf16_d128_n4326_scale_0.1": ((1, 4, S * 721, 128), None, 0.1),
+                    "bf16_d256_n4326_scale_0.1": ((1, 4, S * 721, 256), None, 0.1)})
+# the kernel table's rows: (1, 4, 4326, 128), and (1, 4, 4326, 256) for dk/dv past D = 128
+ANY_D_HEADLINE, ANY_D_HEADLINE_WIDE = "bf16_d128_n4326", "bf16_d256_n4326"
 # B*H = 65,552 > 65,535 (the most grid.y takes): the wgmma kernels at D = 64, the wgmma forward and dk/dv at D = 128,
 # the CUDA-core family in fp32
 MANY_HEADS = {"bf16_d64": (4097, 16, 64, 64), "bf16_d128": (4097, 16, 64, 128), "f32_d24": (4097, 16, S, 24)}
@@ -833,17 +837,18 @@ def cc_case(name, shape, seed, iters=10):
 def any_d_case(name, shape, kv_len, scale, seed, iters=5):
     """bf16 attention at a head dim no DA3 trunk has, through
     ``flash_attention`` under autograd as a user calls it: the wgmma forward,
-    the CUDA-core dq and the wgmma dk/dv (the CUDA-core dk/dv past D = 128),
-    launches counted, against ``attention_plain`` on the kernels' scores
+    dq and dk/dv, launches counted, against ``attention_plain`` on the kernels' scores
     (bf16(q * scale) k^T, in fp32) and ``attention_bwd_plain``'s fp32 sums
     before their last rounding (a kernel's bf16 output is one rounding from
     them; two roundings of sums taken in other orders can land one bf16 ulp
     apart, 2^-7 at values in [1, 2), past the absolute gate), under the bf16
-    gates; same bits run to run. Times of each kernel in a loop of launches
-    (the wrapper's pad of a D that is no multiple of 8 included) beside the
-    bound, the exp floor, the plain versions, SDPA's forward and its backward
-    alone on the same values, and the CUDA-core forward and dk/dv that the
-    wgmma kernels replace, in this call."""
+    gates; same bits run to run. The bf16 CUDA-core forward, dq and dk/dv,
+    which no call is routed to, on the same inputs (the backward on the wgmma
+    forward's out and lse) under the same gates. Times of each kernel in a
+    loop of launches (the wrapper's pad of a D that is no multiple of 8
+    included) beside the bound, the exp floor, the plain versions, SDPA's
+    forward and its backward alone on the same values, and the CUDA-core
+    kernels that the wgmma kernels replace, in this call."""
     Bq, H, N, D = shape
     M = N
     rng = np.random.default_rng(seed)
@@ -868,20 +873,28 @@ def any_d_case(name, shape, kv_len, scale, seed, iters=5):
     ok_out, rel_out, err_out = cc_gate(out, ref_out, torch.bfloat16)
     err_lse = (lse - ref_lse).abs().max().item()
     ok_out = ok_out and err_lse <= LSE_TOL and bool(torch.isfinite(out).all())
+    delta = (do.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, do, lse, delta, kvl, scale)
+    # the bf16 CUDA-core kernels, routed no more, on the same inputs
+    cc_got = dict(out=attention_fwd_cuda_core(q, k, v, kvl, scale)[0], dq=attention_bwd_dq_cuda_core(*args))
+    cc_got["dk"], cc_got["dv"] = attention_bwd_dkv_cuda_core(*args)
+    cc_errs = {"out": cc_gate(cc_got["out"], ref_out, torch.bfloat16)}
     del ref_out, ref_lse
     ref = attention_bwd_plain(q, k, v, out, lse, do, kvl, scale, out_dtype=torch.float32)
     errs = {}
     for key, a, r in zip(("dq", "dk", "dv"), got, ref):
         ok, rl, mx = cc_gate(a, r, torch.bfloat16)
         errs[key] = dict(rel_l2=rl, max_abs=mx, ok=ok and bool(torch.isfinite(a).all()))
-    del ref
-    ok = ok_out and all(e["ok"] for e in errs.values()) and same_bits and launched == want
+        cc_errs[key] = cc_gate(cc_got[key], r, torch.bfloat16)
+    del ref, cc_got
+    cc_errs = {key: dict(rel_l2=rl, max_abs=mx, ok=ok) for key, (ok, rl, mx) in cc_errs.items()}
+    ok = (ok_out and all(e["ok"] for e in list(errs.values()) + list(cc_errs.values())) and same_bits
+          and launched == want)
 
-    delta = (do.float() * out.float()).sum(dim=-1)
-    args = (q, k, v, do, lse, delta, kvl, scale)
     ms = {kind: time_ms(lambda: WRAPPER[kind, routes[kind]](*args), iters) for kind in ("dq", "dkv")}
     ms["fwd"] = time_ms(lambda: flash_attention_fwd(q, k, v, kvl, scale), iters)
     cuda_core_ms = dict(fwd=time_ms(lambda: attention_fwd_cuda_core(q, k, v, kvl, scale), iters),
+                        dq=time_ms(lambda: attention_bwd_dq_cuda_core(*args), iters),
                         dkv=time_ms(lambda: attention_bwd_dkv_cuda_core(*args), iters))
     plain_ms = dict(fwd=time_ms(lambda: attention_plain(q, k, v, kvl, scale), 1, warmup=1),
                     bwd=time_ms(lambda: attention_bwd_plain(q, k, v, out, lse, do, kvl, scale), 1, warmup=1))
@@ -900,7 +913,7 @@ def any_d_case(name, shape, kv_len, scale, seed, iters=5):
                   dkv=bwd_bound_ms(Bq * H, N, M, rows, 8, 2 * M, D))
     res = dict(name=name, shape=list(shape), kv_len=kv_len, scale=scale, routes=routes,
                max_abs_err=max([err_out] + [e["max_abs"] for e in errs.values()]), max_abs_err_out=err_out,
-               rel_l2_err_out=rel_out, max_abs_err_lse=err_lse, errors=errs,
+               rel_l2_err_out=rel_out, max_abs_err_lse=err_lse, errors=errs, cuda_core_errors=cc_errs,
                tol=dict(out_rel_l2=BWD_REL_TOL, max_abs_over_max1_value=BWD_ABS_TOL, lse=LSE_TOL),
                same_bits_run_to_run=same_bits, launches=launched, ms=ms, cuda_core_ms=cuda_core_ms,
                bound_ms={k: b[0] for k, b in bounds.items()}, bound_by={k: b[1] for k, b in bounds.items()},
@@ -909,7 +922,8 @@ def any_d_case(name, shape, kv_len, scale, seed, iters=5):
     emit("any_d_kernel", **res)
     if not ok:
         fail(f"bf16 attention at D={D} disagrees with the plain versions at {name}: out rel {rel_out} (abs {err_out}, "
-             f"lse {err_lse}), {errs}; same bits {same_bits}; launches {launched}, expected {want}")
+             f"lse {err_lse}), {errs}; CUDA-core {cc_errs}; same bits {same_bits}; launches {launched}, "
+             f"expected {want}")
     return res
 
 
@@ -1052,10 +1066,10 @@ def parent_comparison(parent, fps_cases):
     tree at ``parent`` and of this one, timed by
     ``recondet3d_torch/tools/kernel_times.py`` in four processes in turns:
     parent, change, change, parent. Both trees must give the same FPS
-    indices, and ptxas must give the D = 64 instances of this tree's forward
-    and dk/dv (``<1,0>``) and its dq kernel the registers of the parent's
-    kernels. Emits the change's D = 64 request and step mixes over the
-    parent's."""
+    indices, and ptxas must give the D = 64 instances of this tree's
+    forward, dq and dk/dv (``<1,0>``) the registers of the parent's kernels
+    (or of a parent's kernel that is no template). Emits the change's
+    D = 64 request and step mixes over the parent's."""
     here = os.path.dirname(os.path.abspath(__file__))
     tool = os.path.join(here, "recondet3d_torch", "tools", "kernel_times.py")
     runs = []
@@ -1075,9 +1089,11 @@ def parent_comparison(parent, fps_cases):
         regs = {kernel_label(fn): info["registers"] for log in r.pop("ptxas").values()
                 for fn, info in ptxas_report(log).items()}
         registers[r["tree"]] = regs
-    pairs = {"flash_fwd_kernel": "flash_fwd_kernel<1,0>", "flash_bwd_dkv_kernel": "flash_bwd_dkv_kernel<1,0>",
-             "flash_bwd_dq_kernel": "flash_bwd_dq_kernel"}
-    same_registers = {old: registers["parent"].get(old) == registers["change"].get(new) for old, new in pairs.items()}
+    def d64(regs, kernel):  # the D = 64 instance: <1,0> of a template, the kernel itself in a tree without one
+        return regs.get(f"{kernel}<1,0>", regs.get(kernel))
+
+    same_registers = {kernel: d64(registers["parent"], kernel) == d64(registers["change"], kernel)
+                      for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
 
     def ratio(key):
         mean = {tree: np.mean([r[key] for r in runs if r["tree"] == tree]) for tree in ("parent", "change")}
@@ -1085,6 +1101,7 @@ def parent_comparison(parent, fps_cases):
 
     emit("parent_comparison", parent=os.path.abspath(parent), runs=runs, registers=registers,
          d64_same_registers=same_registers, fwd_request_mix_change_over_parent=ratio("fwd_request_mix_ms"),
+         dq_step_mix_change_over_parent=ratio("dq_step_mix_ms"),
          dkv_step_mix_change_over_parent=ratio("dkv_step_mix_ms"))
     if any(r["fps_indices_sum"] != runs[0]["fps_indices_sum"] for r in runs):
         fail("parent comparison: the two trees' FPS kernels chose different indices")
@@ -1887,8 +1904,9 @@ def full_loop_full_width_phase(fwd_case_of, fps_case_of):
 
 # the kernels on wgmma / TMA / mbarriers, one name a template instance: the forward and dk/dv as <DC, EDGE> (64-column
 # chunks of the head dim; a last chunk partly past D)
-HOPPER_KERNELS = tuple(f"flash_fwd_kernel<{dc},{edge}>" for dc in (1, 2, 3, 4) for edge in (0, 1)) + \
-    ("flash_bwd_dq_kernel",) + tuple(f"flash_bwd_dkv_kernel<{dc},{edge}>" for dc in (1, 2) for edge in (0, 1))
+HOPPER_KERNELS = tuple(f"{kernel}<{dc},{edge}>" for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                                                 "flash_bwd_dkv_kernel")
+                       for dc in (1, 2, 3, 4) for edge in (0, 1))
 HOPPER_LIBS = ("flash_attn_fwd", "flash_attn_bwd")  # the sources of HOPPER_KERNELS
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "MUFU.EX2", "SYNCS")
 
@@ -2381,7 +2399,7 @@ def main(argv=None):
     # dq and dk/dv on the GT-pose backward's (da3-large, B=1: D=64); ms, plain_ms and library_ms are device time
     # from torch.profiler at these launch-bound shapes, the host_* keys the time a call takes in a loop of launches
     cc_err = max([c["max_abs_err"] for c in cc_cam.values()] + [many["f32_d24"]["max_abs_err_out"]]
-                 + [c["errors"]["dq"]["max_abs"] for c in any_d.values()])
+                 + [e["max_abs"] for c in any_d.values() for e in c["cuda_core_errors"].values()])
     table["kernels"].append(dict(
         name="attn_cc_fwd", route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
         replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=sum(f32_launches.values()),
@@ -2393,8 +2411,9 @@ def main(argv=None):
         design="CUDA cores, templated on fp32 / bf16 and ceil(D/32) output columns a lane: one CTA per (b*h, 8 query "
                "rows), K/V tiles of 64 through shared memory, one warp per query row, online softmax with expf",
         note="the _flash_kernel instances in fp32 (any D <= 256; bf16 goes to the wgmma forward, and this kernel's "
-             "bf16 instance is timed beside it in the any-D rows); ms, plain_ms and library_ms (SDPA on the same "
-             "fp32 inputs) are device time from torch.profiler",
+             "bf16 instance is checked and timed beside it in the any-D rows); ms, plain_ms and library_ms (SDPA on "
+             "the same fp32 inputs) are device time from torch.profiler; max_abs_err is over every CUDA-core case, "
+             "bf16 ones included",
         cam_enc_large_token_rel_l2=cam_large_err, gt_pose=pose_res, shapes=list(f32_cases.values()),
         cc_cases=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"]["fwd"],
                        bound_ms=c["bound_ms"]["fwd"],
@@ -2417,7 +2436,8 @@ def main(argv=None):
             note="ms, plain_ms (attention_bwd_plain) and library_ms (SDPA's backward alone) are device time from one "
                  "torch.profiler session on the same fp32 inputs, the *host_ms keys the time a call takes in a loop "
                  "of calls; plain_ms and library_ms compute dq, dk and dv together: the same numbers stand in both "
-                 "rows; max_abs_err is over every CUDA-core case",
+                 "rows; max_abs_err is over every CUDA-core case; bf16 is routed to the wgmma kernels, and this "
+                 "kernel's bf16 instance is checked and timed beside them in the any-D rows (cuda_core_ms)",
             gt_pose_backward=pose_bwd,
             shapes=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"][kind],
                          device_ms=f32_cases[c["name"]][f"{kind}_ms"], bound_ms=c["bound_ms"][kind],
@@ -2429,34 +2449,43 @@ def main(argv=None):
                for c in any_d.values() if c["routes"][kind] == "cuda_core"],
             many_heads=[many["f32_d24"]] + [c for c in many.values() if c["routes"][kind] == "cuda_core"
                                              and c is not many["f32_d24"]]))
-    # the wgmma forward and dk/dv at head dims other than 64 (bf16): no config of either package builds them, so the
-    # main path launches them 0 times; their numbers are the headline case's, (1, 4, 4326, 128), one call each, and
-    # the launches through flash_attention are counted in each case (any_d_case)
-    head = any_d[ANY_D_HEADLINE]
-    for kind, fn_name, line, routed in (("fwd", "flash_attn_fwd_any_d", 54, "flash_attention_fwd"),
-                                        ("dkv", "flash_bwd_dkv_any_d", 231, "flash_attention_bwd_dkv")):
+    # the wgmma forward, dq and dk/dv at head dims other than 64 (bf16): no config of either package builds them, so
+    # the main path launches them 0 times; their numbers are the headline case's, (1, 4, 4326, 128), one call each
+    # (and (1, 4, 4326, 256) under "wide"), and the launches through flash_attention are counted in each case
+    # (any_d_case)
+    head, wide = any_d[ANY_D_HEADLINE], any_d[ANY_D_HEADLINE_WIDE]
+    designs = dict(
+        fwd="two consumer warpgroups and 128-key tiles at D <= 64, 64-key tiles at D <= 128, one consumer warpgroup "
+            "a CTA past 128",
+        dq="two consumer warpgroups of 64 query rows and four stages at D <= 64, one consumer warpgroup past it "
+           "(stages 4 / 3 / 2 at D <= 128 / 192 / 256)",
+        dkv="two consumer warpgroups of 64 keys at D <= 64, one at D <= 128; past 128 the chunks of dK and dV split "
+            "between two CTAs a key tile (two chunks each), each recomputing S^T and dP^T over all of D")
+    for kind, fn_name, line, routed, outputs in (
+            ("fwd", "flash_attn_fwd_any_d", 54, "flash_attention_fwd", ("out",)),
+            ("dq", "flash_bwd_dq_any_d", 185, "flash_attention_bwd_dq", ("dq",)),
+            ("dkv", "flash_bwd_dkv_any_d", 231, "flash_attention_bwd_dkv", ("dk", "dv"))):
         cases = [c for c in any_d.values() if c["routes"][kind] == "wgmma"]
-        err_key = "max_abs_err_out" if kind == "fwd" else None
+        lib_plain = "fwd" if kind == "fwd" else "bwd"
         table["kernels"].append(dict(
             name=fn_name, route="cuda",
             source="recondet3d_torch/csrc/" + ("flash_attn_fwd.cu" if kind == "fwd" else "flash_attn_bwd.cu"),
             replaces=f"recondet3d/ops/attention.py:{line}", status="ported+checked",
             launches=0,  # the main path's every launch is at D = 64: d64_launches fails the run otherwise
-            max_abs_err=max(c[err_key] if err_key else max(c["errors"][g]["max_abs"] for g in ("dk", "dv"))
+            max_abs_err=max(c["max_abs_err_out"] if kind == "fwd" else max(c["errors"][g]["max_abs"] for g in outputs)
                             for c in cases),
-            ms=head["ms"][kind], plain_ms=head["plain_ms"]["fwd" if kind == "fwd" else "bwd"],
+            ms=head["ms"][kind], plain_ms=head["plain_ms"][lib_plain],
             bound_ms=head["bound_ms"][kind], bound_by=head["bound_by"][kind],
             exp_floor_ms=head["exp_floor_ms"], cuda_core_ms=head["cuda_core_ms"][kind],
-            library_ms=head["library_ms"]["fwd" if kind == "fwd" else "bwd"],
-            per="one call at (1, 4, 4326, 128) bf16", wrapper=routed,
-            design="wgmma + TMA + mbarriers, a template on ceil(D/64) 64-column chunks: "
-                   + ("two consumer warpgroups and 128-key tiles at D <= 64, 64-key tiles at D <= 128, one consumer "
-                      "warpgroup a CTA past 128" if kind == "fwd" else
-                      "two consumer warpgroups of 64 keys at D <= 64, one at D <= 128 (D > 128 on the CUDA cores)"),
+            library_ms=head["library_ms"][lib_plain],
+            wide={key: wide[key][kind] if key in ("ms", "cuda_core_ms", "bound_ms") else wide[key][lib_plain]
+                  for key in ("ms", "cuda_core_ms", "bound_ms", "plain_ms", "library_ms")},
+            per="one call at (1, 4, 4326, 128) bf16 (wide: at (1, 4, 4326, 256))", wrapper=routed,
+            design="wgmma + TMA + mbarriers, a template on ceil(D/64) 64-column chunks: " + designs[kind],
             note="cuda_core_ms: the CUDA-core kernel this replaces, on the same inputs in this call; library_ms: SDPA "
                  + ("forward" if kind == "fwd" else "backward alone (dq, dk and dv)") + "; plain_ms: "
                  + ("attention_plain" if kind == "fwd" else "attention_bwd_plain (dq, dk and dv)")
-                 + "; max_abs_err: " + ("out" if kind == "fwd" else "dk and dv") + " over every case, the bf16 gate "
+                 + "; max_abs_err: " + " and ".join(outputs) + " over every case, the bf16 gate "
                  "scales it by max(1, |value|)",
             shapes=[dict(name=c["name"], shape=c["shape"], kv_len=c["kv_len"], scale=c["scale"], ms=c["ms"][kind],
                          cuda_core_ms=c["cuda_core_ms"][kind], bound_ms=c["bound_ms"][kind],

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward and dK/dV
+// Hopper (sm_90a) building blocks of the flash-attention forward, dQ and dK/dV
 // kernels: TMA tensor maps of (rows, D) bf16 matrices read in 64-column chunks,
 // mbarrier waits and arrivals, TMA tile loads, 4-byte cp.async copies that
 // arrive on an mbarrier, wgmma descriptors of 128-byte-swizzled tiles and the
@@ -97,10 +97,11 @@ static int allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<uint32_t>& d
   return static_cast<int>(err);
 }
 
-// the one-dimensional grid of ceil(rows / tile) tiles for each of `heads` heads (B*H folded into grid.x,
-// the tile index fastest, so there is no 65,535 limit of grid.y); 0 if it exceeds grid.x's 2^31 - 1
-static unsigned grid_1d(int rows, int tile, int heads) {
-  const long long n = static_cast<long long>((rows + tile - 1) / tile) * heads;
+// the one-dimensional grid of `groups` CTAs for each of ceil(rows / tile) tiles for each of `heads` heads (B*H
+// folded into grid.x, the group fastest, then the tile, so there is no 65,535 limit of grid.y); 0 if it exceeds
+// grid.x's 2^31 - 1
+static unsigned grid_1d(int rows, int tile, int heads, int groups = 1) {
+  const long long n = static_cast<long long>((rows + tile - 1) / tile) * heads * groups;
   return n >= 1 && n <= 0x7fffffffLL ? static_cast<unsigned>(n) : 0u;
 }
 

@@ -39,12 +39,13 @@ other's products. The dq kernel (``csrc/flash_attn_bwd.cu``
 ``flash_bwd_dq_kernel``) has the forward's shape: a producer streams K and V
 tiles by TMA, and consumer warpgroups of 64 query rows run S and dP on
 ``wgmma`` from shared memory and dQ += dS K with dS from registers, taking
-turns on named barriers. The forward and the dk/dv kernel are templates on
-the number of 64-column chunks of the head dim (DC = ceil(D / 64)): each
-chunk is its own swizzled tile, the score products sum over the chunks and
-the output keeps one 64 x 64 accumulator a chunk. The forward takes D up to
-256 (DC = 4), dk/dv up to 128 (DC = 2: its dK and dV accumulators take 64
-registers a thread a chunk).
+turns on named barriers. All three are templates on the number of 64-column
+chunks of the head dim (DC = ceil(D / 64), D up to 256): each chunk is its
+own swizzled tile, the score products sum over the chunks and the output
+keeps one 64 x 64 accumulator a chunk. Past D = 64 (the forward past 128)
+the accumulators leave room for one consumer warpgroup a CTA; dk/dv past
+D = 128, whose dK and dV accumulators take 64 registers a thread a chunk,
+splits the chunks between two CTAs that each recompute the scores.
 
 Head dims that are not a multiple of 8. A TMA row stride is a multiple of
 16 bytes, so the wrappers pad q, k, v (and dO) with zero columns to the
@@ -63,27 +64,25 @@ return lse) and ``attention_bwd_plain`` (explicit formulae with the kernels'
 roundings, no autograd) are the kernels' plain versions: the CPU path and
 the reference the kernels are checked against on the card.
 
-Every other dtype and head dim. The JAX package runs ``_flash_kernel`` and
-its backward at any D, and in fp32 for the camera encoder's trunk
-(GT-pose conditioning: 16 heads of dim_out / 16, D = 24 to 96, one token a
-view). ``csrc/attn_cuda_core.cu`` holds a forward, a dq and a dk/dv kernel
-on the CUDA cores (fp32 products, no TF32), templated on the element type
-(fp32, bf16) and taking any D from 1 to 256, with the roundings of the
-plain versions (for bf16 inputs qs, P and dS rounded to bf16 before the
-second products).
+fp32. The JAX package runs ``_flash_kernel`` and its backward in fp32 for
+the camera encoder's trunk (GT-pose conditioning: 16 heads of dim_out / 16,
+D = 24 to 96, one token a view). ``csrc/attn_cuda_core.cu`` holds a
+forward, a dq and a dk/dv kernel on the CUDA cores (fp32 products, no
+TF32), templated on the element type (fp32, bf16) and taking any D from 1
+to 256, with the roundings of the plain versions (for bf16 inputs qs, P and
+dS rounded to bf16 before the second products).
 
 Which kernel a CUDA call runs is decided for each of the three kernels by
-dtype and head dim alone (``kernel_variant``): bf16 forward at any D from 1
-to 256, bf16 dq at D = 64 and bf16 dk/dv at D <= 128 on the wgmma kernels;
-bf16 dq at other D, bf16 dk/dv at D > 128 and everything in fp32 on the
-CUDA-core family; anything else (fp16, fp64, D > 256; no config of either
-package builds them) raises. This is routing by shape, not a fallback: a
-call never reaches a kernel its route does not name, and no call on a CUDA
-tensor reaches a plain version. The bf16 CUDA-core forward and dk/dv stay
+dtype and head dim alone (``kernel_variant``): bf16 at any D from 1 to 256
+on the wgmma kernels, fp32 on the CUDA-core family; anything else (fp16,
+fp64, D > 256; no config of either package builds them) raises. This is
+routing by shape, not a fallback: a call never reaches a kernel its route
+does not name, and no call on a CUDA tensor reaches a plain version. The
+bf16 instances of the CUDA-core family are routed no more; they stay
 callable through their wrappers (``attention_fwd_cuda_core``,
-``attention_bwd_dkv_cuda_core``) for the comparisons on the card. Every
-kernel folds B*H into grid.x with its row tiles, so B*H has no limit of its
-own.
+``attention_bwd_dq_cuda_core``, ``attention_bwd_dkv_cuda_core``) for the
+comparisons on the card. Every kernel folds B*H into grid.x with its row
+tiles, so B*H has no limit of its own.
 """
 
 from __future__ import annotations
@@ -116,9 +115,7 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-MAX_HEAD_DIM = 256  # the limit of the forward kernels (the JAX kernels take any D; no preset goes past 96)
-WGMMA_DQ_HEAD_DIM = 64  # the head dim of the wgmma dq kernel
-WGMMA_DKV_MAX_HEAD_DIM = 128  # the wgmma dk/dv kernel takes D up to this
+MAX_HEAD_DIM = 256  # the limit of every kernel (the JAX kernels take any D; no preset goes past 96)
 KERNELS = ("fwd", "dq", "dkv")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_COL_MULTIPLE = 8  # a TMA row stride is a multiple of 16 bytes: 8 bf16
@@ -183,13 +180,13 @@ def attention_bwd_plain(q, k, v, out, lse, dout, kv_len=None, scale=None, out_dt
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "flash_attn_fwd_bf16": [_P] * 6 + [_I] * 5 + [_F, _P],
-    "flash_attn_bwd_dq_bf16_d64": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
+    "flash_attn_bwd_dq_bf16": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_P],
     "flash_attn_bwd_dkv_bf16": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_P],
     "attn_cc_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "attn_cc_bwd_dq": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
     "attn_cc_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
 }
-_LIBRARY = {"flash_attn_fwd_bf16": "flash_attn_fwd", "flash_attn_bwd_dq_bf16_d64": "flash_attn_bwd",
+_LIBRARY = {"flash_attn_fwd_bf16": "flash_attn_fwd", "flash_attn_bwd_dq_bf16": "flash_attn_bwd",
             "flash_attn_bwd_dkv_bf16": "flash_attn_bwd", "attn_cc_fwd": "attn_cuda_core",
             "attn_cc_bwd_dq": "attn_cuda_core", "attn_cc_bwd_dkv": "attn_cuda_core"}
 
@@ -204,10 +201,9 @@ def _kernel_fn(name: str):
     return fn
 
 
-def _check_kernel_inputs(what: str, dtypes, max_d: int, q, k, v, kv_len, scale, like_q=(), row_stats=(),
-                         only_d=None, align=1):
+def _check_kernel_inputs(what: str, dtypes, max_d: int, q, k, v, kv_len, scale, like_q=(), row_stats=(), align=1):
     """Takes contiguous (B, H, N, D) tensors of one of ``dtypes`` with D
-    from 1 to ``max_d`` (or D = ``only_d``), ``align``-byte aligned, all on
+    from 1 to ``max_d``, ``align``-byte aligned, all on
     one CUDA device; anything else raises. ``like_q``: (name, tensor) pairs
     that must match q in shape and dtype; ``row_stats``: (name, tensor) pairs
     that must be fp32 (B, H, N). Returns (B, H, N, M, D, kv_len as int32 or
@@ -218,10 +214,9 @@ def _check_kernel_inputs(what: str, dtypes, max_d: int, q, k, v, kv_len, scale, 
         if t.dim() != 4 or t.dtype != q.dtype:
             raise ValueError(f"{what} takes (B, H, N, D) tensors of one dtype; {name} is {t.dtype} {tuple(t.shape)}")
     d = q.shape[-1]
-    if q.dtype not in dtypes or not (d == only_d if only_d is not None else 1 <= d <= max_d):
-        dims = f"D = {only_d}" if only_d is not None else f"D from 1 to {max_d}"
-        raise ValueError(f"{what} kernel takes {' or '.join(str(t) for t in dtypes)} with {dims}; q is {q.dtype} "
-                         f"{tuple(q.shape)}")
+    if q.dtype not in dtypes or not 1 <= d <= max_d:
+        raise ValueError(f"{what} kernel takes {' or '.join(str(t) for t in dtypes)} with D from 1 to {max_d}; q is "
+                         f"{q.dtype} {tuple(q.shape)}")
     B, H, N, D = q.shape
     M = k.shape[2]
     if k.shape != (B, H, M, D) or v.shape != k.shape:
@@ -277,21 +272,17 @@ def _launch(wrapper, name: str, tensors, ints, floats, device, key):
 
 def kernel_variant(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
     """The kernel that takes CUDA inputs of this dtype and head dim for
-    ``kernel`` ('fwd', 'dq' or 'dkv'): 'wgmma' (``csrc/flash_attn_fwd.cu``,
-    ``flash_attn_bwd.cu``: the bf16 forward at any D from 1 to 256, the
-    bf16 dq at D = 64, the bf16 dk/dv at D up to 128) or 'cuda_core'
-    (``csrc/attn_cuda_core.cu``: fp32 at any D from 1 to 256, the other bf16
-    dq and dk/dv; the camera encoder's trunk is fp32). Raises ValueError for
-    anything else (fp16, fp64, D > 256)."""
+    ``kernel`` ('fwd', 'dq' or 'dkv'): 'wgmma' for bf16 at any D from 1 to
+    256 (``csrc/flash_attn_fwd.cu``, ``flash_attn_bwd.cu``) or 'cuda_core'
+    for fp32 at any D from 1 to 256 (``csrc/attn_cuda_core.cu``; the camera
+    encoder's trunk is fp32). Raises ValueError for anything else (fp16,
+    fp64, D > 256)."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown attention kernel {kernel!r}: one of {KERNELS}")
     if dtype not in _DTYPE_CODE or not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: fp32 and bf16 take D from 1 "
                          f"to {MAX_HEAD_DIM}")
-    if dtype == torch.float32:
-        return "cuda_core"
-    wgmma = {"fwd": True, "dq": head_dim == WGMMA_DQ_HEAD_DIM, "dkv": head_dim <= WGMMA_DKV_MAX_HEAD_DIM}[kernel]
-    return "wgmma" if wgmma else "cuda_core"
+    return "cuda_core" if dtype == torch.float32 else "wgmma"
 
 
 def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -368,31 +359,33 @@ def _check_bwd_inputs(what, dtypes, max_d, q, k, v, dout, lse, delta, kv_len, sc
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, kv_len=None, scale=None) -> torch.Tensor:
-    """dq (B, H, N, 64) bf16 from the wgmma dq kernel: one CTA per 128 query
-    rows (two warpgroups of 64), looping over the keys. CUDA tensors only
-    (``flash_attention_bwd`` takes CPU tensors to the plain version), bf16
-    with D = 64; ``delta`` (B, H, N) fp32 is rowsum(dout * out). Counts its
-    launches like ``flash_attention_fwd``."""
+    """dq (B, H, N, D) bf16 from the wgmma dq kernel: one CTA per 128
+    query rows (two warpgroups of 64) at D <= 64, per 64 past it, looping
+    over the keys. CUDA tensors only (``flash_attention_bwd`` takes CPU
+    tensors to the plain version), bf16 with D from 1 to 256 (padded to
+    ``tma_cols(D)`` columns here when D is no multiple of 8); ``delta`` (B,
+    H, N) fp32 is rowsum(dout * out). Counts its launches like
+    ``flash_attention_fwd``."""
     B, H, N, M, D, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dq", (torch.bfloat16,), MAX_HEAD_DIM, q,
-                                                     k, v, dout, lse, delta, kv_len, scale,
-                                                     only_d=WGMMA_DQ_HEAD_DIM, align=16)
+                                                     k, v, dout, lse, delta, kv_len, scale, align=16)
     qk, mul = score_operand(q, scale)
-    dq = torch.empty_like(q)
-    _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16_d64", (qk, k, v, dout, lse, delta, kv_len, dq),
-            (B, H, N, M), (mul, scale), q.device, (B, H, N, M, D))
-    return dq
+    cols = tma_cols(D)
+    qk, k, v, dout = (_pad_cols(t, cols) for t in (qk, k, v, dout))
+    dq = torch.empty((B, H, N, cols), dtype=q.dtype, device=q.device)
+    _launch(flash_attention_bwd_dq, "flash_attn_bwd_dq_bf16", (qk, k, v, dout, lse, delta, kv_len, dq),
+            (B, H, N, M, cols), (mul, scale), q.device, (B, H, N, M, D))
+    return _cut_cols(dq, D)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, kv_len=None, scale=None):
     """(dk, dv) (B, H, M, D) bf16 from the wgmma dk/dv kernel: one CTA per
-    128 key rows (two warpgroups of 64), looping over the queries; keys at
+    128 key rows (two warpgroups of 64) at D <= 64, per 64 past it (and per
+    half of the columns past D = 128), looping over the queries; keys at
     index >= kv_len[b] get zeros. CUDA tensors only, bf16 with D from 1 to
-    ``WGMMA_DKV_MAX_HEAD_DIM`` (padded to ``tma_cols(D)`` columns here when
-    D is no multiple of 8). Counts its launches like
-    ``flash_attention_fwd``."""
-    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", (torch.bfloat16,),
-                                                     WGMMA_DKV_MAX_HEAD_DIM, q, k, v, dout, lse, delta, kv_len,
-                                                     scale, align=16)
+    256 (padded to ``tma_cols(D)`` columns here when D is no multiple of 8).
+    Counts its launches like ``flash_attention_fwd``."""
+    B, H, N, M, D, kv_len, scale = _check_bwd_inputs("flash_attention_bwd_dkv", (torch.bfloat16,), MAX_HEAD_DIM, q,
+                                                     k, v, dout, lse, delta, kv_len, scale, align=16)
     qk, mul = score_operand(q, scale)
     cols = tma_cols(D)
     qp = _pad_cols(q, cols)
@@ -438,9 +431,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_len=None, scale=None):
 
     CPU tensors take ``attention_bwd_plain``. CUDA tensors launch the dq and
     the dk/dv kernel that ``kernel_variant`` names for each (bf16: the wgmma
-    dq at D = 64 and the wgmma dk/dv at D <= 128, the CUDA-core ones
-    otherwise; fp32: the CUDA-core pair; anything else raises, never the
-    plain version)."""
+    pair; fp32: the CUDA-core pair; anything else raises, never the plain
+    version)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, kv_len, scale)
     if out.shape != q.shape or out.device != q.device or dout.device != q.device:
@@ -497,9 +489,8 @@ def flash_attention(q, k, v, kv_len=None, scale=None, impl: str = "auto") -> tor
     tensors; 'plain' forces ``attention_plain`` under autograd (the
     reference runs). On CUDA each of the forward, dq and dk/dv kernels is
     the one ``kernel_variant`` names for the dtype and head dim (bf16: the
-    wgmma forward at any D up to 256, wgmma dq at D = 64, wgmma dk/dv at D
-    up to 128, the CUDA-core kernels for the rest; fp32: the CUDA-core
-    family); other inputs raise ValueError.
+    wgmma kernels at any D up to 256; fp32: the CUDA-core family); other
+    inputs raise ValueError.
     """
     if impl == "plain":
         return attention_plain(q, k, v, kv_len, scale)[0]

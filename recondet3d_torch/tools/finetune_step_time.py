@@ -75,17 +75,19 @@ def launch_costs():
     # the C launchers alone; the dk/dv entry takes (q, qs, ..., mul, scale) since the Hopper
     # redesign and (q, ..., scale) before it: both are timed with a power-of-two scale. Since the
     # forward and dk/dv took any head dim their entries are `flash_attn_fwd_bf16` and
-    # `flash_attn_bwd_dkv_bf16`, with D after (B, H, N, M)
+    # `flash_attn_bwd_dkv_bf16`, with D after (B, H, N, M), and since dq did `flash_attn_bwd_dq_bf16`
     o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
     dims, stream = list(SHAPE[:3]) + [SHAPE[2]], torch.cuda.current_stream().cuda_stream
     any_d = "flash_attn_fwd_bf16" in attention._ARGTYPES
     fwd_name, dkv_name = ("flash_attn_fwd_bf16", "flash_attn_bwd_dkv_bf16") if any_d else \
         ("flash_attn_fwd_bf16_d64", "flash_attn_bwd_dkv_bf16_d64")
+    dq_any_d = "flash_attn_bwd_dq_bf16" in attention._ARGTYPES
+    dq_name = "flash_attn_bwd_dq_bf16" if dq_any_d else "flash_attn_bwd_dq_bf16_d64"
     d_arg = [SHAPE[3]] if any_d else []
     two_floats = any_d or len(attention._ARGTYPES[dkv_name]) == 17
     calls = dict(fwd=(fwd_name, (q, k, v, None, o, lse), d_arg, [0.125]),
-                 dq=("flash_attn_bwd_dq_bf16_d64", (q, k, v, do, lse, delta, None, dq), [],
-                     [0.125] * (len(attention._ARGTYPES["flash_attn_bwd_dq_bf16_d64"]) - 13)),
+                 dq=(dq_name, (q, k, v, do, lse, delta, None, dq), d_arg if dq_any_d else [],
+                     [0.125] * (len(attention._ARGTYPES[dq_name]) - 13 - dq_any_d)),
                  dkv=(dkv_name, ((q,) if two_floats else ()) + (q, k, v, do, lse, delta, None, dk, dv), d_arg,
                       [0.125] * (2 if two_floats else 1)))
     launcher = {}

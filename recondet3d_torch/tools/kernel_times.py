@@ -14,13 +14,14 @@ voxel pre-reduce 0.1, the point path on the anchored depth of
 the arguments ``furthest_point_sample_cuda`` takes, as ``chip_smoke.py``
 writes them for its FPS cases. On inputs made from a seed: the dq and dk/dv
 kernels at the fine-tuning step's shapes (ViT-L local and global at B=1)
-and their mix in one step (16 local and 8 global launches); the flash
-forward at the request's shapes (ViT-g local and global, ViT-L local at
-B=2) and its mix in one request (26, 14 and 24 launches); bf16 attention at
-the head dims no DA3 trunk has ((1, 4, N, D), D in {32, 96, 128, 20}, N in
-{721, 4326}) through the kernels the tree routes them to (its
-``attention_fwd``, and its wgmma dk/dv where it takes the head dim, else
-``attention_bwd_dkv_cuda_core``); the fp32 attention forward at the camera
+and their mixes in one step (16 local and 8 global launches each); the
+flash forward at the request's shapes (ViT-g local and global, ViT-L local
+at B=2) and its mix in one request (26, 14 and 24 launches); bf16 attention
+at the head dims no DA3 trunk has ((1, 4, N, D), D in {32, 96, 128, 20}, N
+in {721, 4326}, and D in {160, 256} at 4,326): the forward, dq and dk/dv
+through the kernels the tree routes them to (its ``attention_fwd``, and the
+wgmma or CUDA-core dq and dk/dv wrapper its ``kernel_variant(dtype, D,
+kernel)`` names: trees since the per-kernel routing); the fp32 attention forward at the camera
 encoders' shapes (device time from ``torch.profiler``: a call is
 launch-bound there) through the tree's wrapper (``attention_fwd_cuda_core``,
 or ``attention_fwd_f32`` in trees before the CUDA-core family). Prints one
@@ -46,10 +47,11 @@ from recondet3d_torch.ops.fps import furthest_point_sample_cuda
 
 # (B, H, N, M) at D = 64 and the launches of one fine-tuning step (backward) or one request (forward) at each
 DQ_SHAPES = {"vitl_local_b1": (6, 16, 721, 721), "vitl_global_b1": (1, 16, 4326, 4326)}
-DKV_PER_STEP = {"vitl_local_b1": 16, "vitl_global_b1": 8}
+BWD_PER_STEP = {"vitl_local_b1": 16, "vitl_global_b1": 8}  # dq launches and dk/dv launches alike
 FWD_SHAPES = {"vitg_local": (12, 24, 721, 721), "vitg_global": (2, 24, 4326, 4326), "vitl_local": (12, 16, 721, 721)}
 FWD_PER_REQUEST = {"vitg_local": 26, "vitg_global": 14, "vitl_local": 24}
 ANY_D_SHAPES = {f"bf16_d{d}_n{n}": (1, 4, n, d) for d in (32, 96, 128, 20) for n in (721, 4326)}
+ANY_D_SHAPES.update({f"bf16_d{d}_n4326": (1, 4, 4326, d) for d in (160, 256)})
 F32_SHAPES = {"cam_enc_giant": (2, 16, 6, 96), "cam_enc_large_b1": (1, 16, 6, 64)}
 F32_CALLS = 100  # profiled calls of the fp32 forward at each shape
 
@@ -75,14 +77,14 @@ def bf16_inputs(shape_q, M, seed):
             for n in (N, M, M, N)]
 
 
-def dkv_wrapper(head_dim):
-    """The dk/dv wrapper the tree routes bf16 at ``head_dim`` to: its wgmma
-    kernel where it takes the head dim (any D up to
-    ``WGMMA_DKV_MAX_HEAD_DIM`` since that constant exists, D = 64 before),
-    else the CUDA-core kernel."""
-    wgmma_max = getattr(attention, "WGMMA_DKV_MAX_HEAD_DIM", None)
-    takes = head_dim <= wgmma_max if wgmma_max is not None else head_dim == 64
-    return flash_attention_bwd_dkv if takes else attention.attention_bwd_dkv_cuda_core
+def bwd_wrapper(kind, head_dim):
+    """The ``kind`` ('dq' or 'dkv') wrapper the tree routes bf16 at
+    ``head_dim`` to: the wgmma or the CUDA-core one, as its
+    ``kernel_variant`` names it."""
+    wgmma = attention.kernel_variant(torch.bfloat16, head_dim, kind) == "wgmma"
+    return {("dq", True): flash_attention_bwd_dq, ("dkv", True): flash_attention_bwd_dkv,
+            ("dq", False): attention.attention_bwd_dq_cuda_core,
+            ("dkv", False): attention.attention_bwd_dkv_cuda_core}[kind, wgmma]
 
 
 def device_ms_per_call(fn, calls):
@@ -139,7 +141,7 @@ def main(argv=None) -> int:
         print("kernel_times: CUDA is not available", file=sys.stderr)
         return 1
     res = {"fps_ms": {}, "fps_indices_sum": {}, "dq_ms": {}, "dkv_ms": {}, "fwd_ms": {}, "any_d_fwd_ms": {},
-           "any_d_dkv_ms": {}, "f32_fwd_device_ms": {}}
+           "any_d_dq_ms": {}, "any_d_dkv_ms": {}, "f32_fwd_device_ms": {}}
     for case in torch.load(args.fps_inputs):
         p, m, s, k = (case[key].cuda() if torch.is_tensor(case[key]) else case[key]
                       for key in ("points", "valid", "start", "k"))
@@ -151,7 +153,8 @@ def main(argv=None) -> int:
         delta = (do.float() * out.float()).sum(dim=-1)
         res["dq_ms"][name] = time_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta), args.iters_dq)
         res["dkv_ms"][name] = time_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta), args.iters_dq)
-    res["dkv_step_mix_ms"] = sum(res["dkv_ms"][name] * n for name, n in DKV_PER_STEP.items())
+    for kind in ("dq", "dkv"):
+        res[f"{kind}_step_mix_ms"] = sum(res[f"{kind}_ms"][name] * n for name, n in BWD_PER_STEP.items())
     for name, (B, H, N, M) in FWD_SHAPES.items():
         q, k, v, _ = bf16_inputs((B, H, N, 64), M, seed=10)
         res["fwd_ms"][name] = time_ms(lambda: flash_attention_fwd(q, k, v), args.iters_dq)
@@ -160,9 +163,10 @@ def main(argv=None) -> int:
         q, k, v, do = bf16_inputs((B, H, N, D), N, seed=70)
         out, lse = attention.attention_fwd(q, k, v)
         delta = (do.float() * out.float()).sum(dim=-1)
-        dkv = dkv_wrapper(D)
         res["any_d_fwd_ms"][name] = time_ms(lambda: attention.attention_fwd(q, k, v), args.iters_dq)
-        res["any_d_dkv_ms"][name] = time_ms(lambda: dkv(q, k, v, do, lse, delta), args.iters_dq)
+        for kind in ("dq", "dkv"):
+            fn = bwd_wrapper(kind, D)
+            res[f"any_d_{kind}_ms"][name] = time_ms(lambda: fn(q, k, v, do, lse, delta), args.iters_dq)
     f32_fwd = getattr(attention, "attention_fwd_cuda_core", None) or attention.attention_fwd_f32
     for name, shape in F32_SHAPES.items():
         rng = np.random.default_rng(40)

@@ -182,10 +182,12 @@ def _gate(got, ref, dtype):
 def test_cuda_core_kernels_match_plain(dtype, D, use_kv_len):
     """Forward, dq and dk/dv against the plain versions on the same inputs,
     through the dispatcher and autograd; same bits run to run. fp32 runs all
-    three on the CUDA cores and never a wgmma kernel; bf16 runs its dq there
-    (and dk/dv at D > 128), its forward and its dk/dv at D <= 128 on the
-    wgmma kernels (tests/test_torch_attention_wgmma_any_d.py holds those at
-    more shapes)."""
+    three on the CUDA cores and never a wgmma kernel; bf16 runs all three on
+    the wgmma kernels (tests/test_torch_attention_wgmma_any_d.py and
+    test_torch_attention_wgmma_bwd_any_d.py hold those at more shapes), and
+    the bf16 CUDA-core kernels, which no call is routed to, are then called
+    directly and held to the plain versions' fp32 sums before their last
+    rounding (one rounding away)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     B, H, N, M = 2, 3, 77, 140
@@ -216,6 +218,15 @@ def test_cuda_core_kernels_match_plain(dtype, D, use_kv_len):
     for name, a, r, b in zip(("dq", "dk", "dv"), grads, ref, again):
         gate = _gate(a, r, dtype)
         assert torch.isfinite(a).all() and gate[0] and torch.equal(a, b), (name, gate)
+    if dtype == torch.bfloat16:
+        out_cc, lse_cc = attention_fwd_cuda_core(q, k, v, kvl)
+        delta = (g.float() * out_cc.float()).sum(dim=-1)
+        got = (out_cc, attention_bwd_dq_cuda_core(q, k, v, g, lse_cc, delta, kvl),
+               *attention_bwd_dkv_cuda_core(q, k, v, g, lse_cc, delta, kvl))
+        ref = (ref_out,) + attention_bwd_plain(q, k, v, out_cc, lse_cc, g, kvl, out_dtype=torch.float32)
+        for name, a, r in zip(("out", "dq", "dk", "dv"), got, ref):
+            gate = _gate(a, r, dtype)
+            assert torch.isfinite(a).all() and gate[0], ("cuda_core", name, gate)
 
 
 # (B, H, N, D) with B * H = 65,552 > 65,535, the most grid.y takes

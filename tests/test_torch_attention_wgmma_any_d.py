@@ -1,6 +1,6 @@
 """bf16 attention at every head dim on the wgmma kernels: the forward
-(``csrc/flash_attn_fwd.cu``, D from 1 to 256) and the dk/dv kernel
-(``csrc/flash_attn_bwd.cu``, D up to 128), templated on the number of
+(``csrc/flash_attn_fwd.cu``), the dq and the dk/dv kernel
+(``csrc/flash_attn_bwd.cu``), D from 1 to 256, templated on the number of
 64-column chunks of the head dim.
 
 On the CPU: the routing of each kernel (``kernel_variant``) for fp32 and
@@ -14,7 +14,7 @@ they match the JAX package's Pallas kernels in interpret mode: relative L2
 qs, P, dS and the outputs to bf16), the gates of
 ``test_torch_attention_any_d.py``.
 
-On a GPU (marker ``cuda``): the wgmma forward and dk/dv against the plain
+On a GPU (marker ``cuda``): the wgmma forward, dq and dk/dv against the plain
 versions through ``flash_attention`` and autograd at D in {16, 20, 24, 32,
 48, 96, 128, 160, 256} and N in {1, 37, 721, 4326}, with and without
 ``kv_len``, at scale 0.1, and at B*H = 65,552 for D = 128. Gates, those of
@@ -89,11 +89,7 @@ def _inputs(shape_q, M, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_each_kernel_is_routed_by_dtype_and_head_dim(dtype, kernel):
     for D in range(1, tattn.MAX_HEAD_DIM + 1):
-        if dtype == torch.float32:
-            want = "cuda_core"
-        else:
-            want = {"fwd": "wgmma", "dq": "wgmma" if D == 64 else "cuda_core",
-                    "dkv": "wgmma" if D <= 128 else "cuda_core"}[kernel]
+        want = "cuda_core" if dtype == torch.float32 else "wgmma"
         assert kernel_variant(dtype, D, kernel) == want, D
 
 
@@ -243,11 +239,10 @@ def _check_routed(B, H, N, M, D, kv_len, scale, seed):
     again = torch.autograd.grad(out2, leaves, g)
     torch.cuda.synchronize()
     key = (B, H, N, M, D)
-    assert flash_attention_fwd.launches_by_shape == {key: 2} and attention_fwd_cuda_core.launches == 0
-    assert attention_bwd_dq_cuda_core.launches_by_shape == {key: 2} and flash_attention_bwd_dq.launches == 0
-    on_wgmma = D <= tattn.WGMMA_DKV_MAX_HEAD_DIM
-    assert flash_attention_bwd_dkv.launches_by_shape == ({key: 2} if on_wgmma else {})
-    assert attention_bwd_dkv_cuda_core.launches_by_shape == ({} if on_wgmma else {key: 2})
+    for on_wgmma, on_cores in ((flash_attention_fwd, attention_fwd_cuda_core),
+                               (flash_attention_bwd_dq, attention_bwd_dq_cuda_core),
+                               (flash_attention_bwd_dkv, attention_bwd_dkv_cuda_core)):
+        assert on_wgmma.launches_by_shape == {key: 2} and on_cores.launches == 0, on_wgmma.__name__
     assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, again))
     s = D ** -0.5 if scale is None else scale
     qs = (q.float() * s).to(torch.bfloat16)

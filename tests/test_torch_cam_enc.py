@@ -102,14 +102,13 @@ def test_fp32_dispatch_on_cpu_runs_the_plain_version_and_launches_nothing():
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, ("wgmma", "wgmma", "wgmma")),
     *[(torch.float32, d, ("cuda_core",) * 3) for d in (8, 24, 48, 64, 96, 128)],
-    # the CUDA-core family holds fp32 at any D up to 256; bf16 runs the wgmma forward at any D up to 256, the wgmma
-    # dk/dv up to 128 and the wgmma dq at 64 only
+    # the CUDA-core family holds fp32 at any D up to 256; bf16 runs the wgmma forward, dq and dk/dv at any D up to 256
     (torch.float32, 20, ("cuda_core",) * 3), (torch.float32, 136, ("cuda_core",) * 3),
     (torch.float32, 4, ("cuda_core",) * 3),
-    (torch.bfloat16, 96, ("wgmma", "cuda_core", "wgmma")),
+    (torch.bfloat16, 96, ("wgmma",) * 3),
     *[(torch.float32, d, ("cuda_core",) * 3) for d in (1, 256)],
-    *[(torch.bfloat16, d, ("wgmma", "cuda_core", "wgmma")) for d in (1, 20, 32, 63, 65, 128)],
-    *[(torch.bfloat16, d, ("wgmma", "cuda_core", "cuda_core")) for d in (129, 256)],
+    *[(torch.bfloat16, d, ("wgmma",) * 3) for d in (1, 20, 32, 63, 65, 128)],
+    *[(torch.bfloat16, d, ("wgmma",) * 3) for d in (129, 256)],
 ])
 def test_kernel_variant_takes(dtype, D, variant):
     assert tuple(kernel_variant(dtype, D, kernel) for kernel in ("fwd", "dq", "dkv")) == variant
