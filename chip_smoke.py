@@ -143,6 +143,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
             eval ms per sample, valid points per stage; gates on running
             (exit codes, finite losses, a checkpoint that loads, every metric
             line) and on the launches.
+20. da3-api the DA3 public API and the ``da3`` CLI at full width, random
+            weights from seed 0, no checkpoint (``HF_HUB_OFFLINE``, an empty
+            cache): (a) ``DepthAnything3.from_pretrained(
+            "depth-anything/DA3NESTED-GIANT-LARGE")`` with the GS head its
+            preset builds, ``inference`` on 6 uint8 views of 900x1600 with
+            ``infer_gs`` and every exporter but the video, plus feature
+            layers; one warm-up and three timed calls; shapes, finiteness,
+            846,720 Gaussians, every file read back, flash launches per
+            shape; (b) the same call on the plain attention: the last ViT-g
+            features and the raw Gaussians to the in-situ gate, depth reported; (c) with GT poses: extrinsics
+            aligned, 4 fp32 camera-encoder launches, and with ``align_to_input_ext_scale=False`` the poses one
+            similarity of the input whose scale (c)'s depth was divided by; (d) ``use_ray_pose``;
+            (e) ``python -m recondet3d_torch.cli.da3 images`` and ``colmap``
+            in subprocesses; (f) 32 views (the CLI's ``--max-frames``) at
+            280x504 with ``infer_gs``, timed with its peak memory, and the
+            flash forward at (1, 24, 23072, 64) against its plain version,
+            SDPA and the bound; (g) ``render_3dgs`` along the 30-frame path of
+            the gs_video exporter on its default device, the exporter's own
+            render call and the exporter as the API calls it (or its cv2 error
+            where cv2 is absent), and a frame that 846,720 planted Gaussians
+            cover, held to the same renderer on the CPU and timed with the JAX
+            package's 4,096-Gaussian blocks too.
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
@@ -165,6 +187,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import importlib
+import importlib.util
 import io
 import json
 import os
@@ -180,17 +203,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from recondet3d_torch.api import DepthAnything3
 from recondet3d_torch.data.anchor_scene import anchor_depth, rig_cam2lidar
+from recondet3d_torch.data.export import export as da3_export
+from recondet3d_torch.data.export.colmap_io import read_cameras_bin, read_images_bin
+from recondet3d_torch.data.export.pointcloud_io import read_ply
 from recondet3d_torch.data.input_processor import compute_process_shape, process_tensor_batch
 from recondet3d_torch.cli import create_data as cli_create_data
 from recondet3d_torch.cli import test as cli_test
 from recondet3d_torch.cli import train as cli_train
 from recondet3d_torch.cli.train import build_model_from_cfg
 from recondet3d_torch.core.config import load_py_config
-from recondet3d_torch.data.image_io import write_ppm
+from recondet3d_torch.data.image_io import imread_rgb, write_png, write_ppm
 from recondet3d_torch.data.pipelines.point_pipeline import (ball_query_downsample, filter_point_by_range,
                                                             voxel_pre_reduce)
 from recondet3d_torch.models.da3 import CameraEnc, build_da3
+from recondet3d_torch.models.da3 import gs_renderer
+from recondet3d_torch.models.da3.gs_renderer import render_3dgs, render_trajectory_frames
 from recondet3d_torch.models.da3.layers import init_parameters_, set_attn_impl
 from recondet3d_torch.models.detect import build_resdet3d
 from recondet3d_torch.ops import fps as fps_ops
@@ -218,6 +247,9 @@ from recondet3d_torch.tools.ptxas_spills import kernel_label
 from recondet3d_torch.utils import stage_timer
 from recondet3d_torch.train import Trainer
 from recondet3d_torch.train import checkpoints as ckpt_io
+from recondet3d_torch.specs import Gaussians
+from recondet3d_torch.utils.camera_traj import interpolate_camera_path
+from recondet3d_torch.utils.pose_align import align_poses_umeyama
 from recondet3d_torch.utils.geometry import depth_to_points_cam
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -339,6 +371,26 @@ LOOP_GATES = dict(normalized_loss_below=0.25, car_ap_above=0.35, present_mean_ap
 PRESENT = ("car_AP", "pedestrian_AP", "traffic_cone_AP")
 CLASS_NAMES = ("car", "truck", "construction_vehicle", "bus", "trailer", "barrier", "motorcycle", "bicycle",
                "pedestrian", "traffic_cone")
+
+
+# phase 20, the DA3 API: the CLI's default model, 6 views of 900x1600 (and 32 of 280x504, the CLI's --max-frames),
+# every exporter but gs_video (its mp4 needs cv2: phase 20g runs it, or checks its error where cv2 is absent),
+# feature layers for feat_vis; phase 6's in-situ gate for the features and the raw Gaussians on the plain attention
+API_MODEL = "depth-anything/DA3NESTED-GIANT-LARGE"
+API_FORMATS = "glb-npz-mini_npz-depth_vis-gs_ply-colmap-feat_vis"
+API_FEAT_LAYERS = (39,)
+API_CALLS = 3
+API_LONG_S = 32
+API_SHAPES = {"vitg_local": (S, 24, 721, 721), "vitg_global": (1, 24, S * 721, S * 721),
+              "vitl_local": (S, 16, 721, 721)}
+API_LONG_SHAPES = {"vitg_local": (API_LONG_S, 24, 721, 721), "vitg_global": (1, 24, API_LONG_S * 721, API_LONG_S * 721),
+                   "vitl_local": (API_LONG_S, 16, 721, 721)}
+API_GAUSSIANS = S * 280 * 504
+TRAJ_FRAMES = 30  # export_to_gs_video's path
+# phase 20g's planted frame: API_GAUSSIANS Gaussians inside the identity camera's frustum at 280x504
+PLANTED_K = np.array([[500.0, 0, 252], [0, 500.0, 140], [0, 0, 1]], np.float32)
+PLANTED_MIN_COVERED = 0.99  # the share of pixels the frame must cover (alpha > 0)
+RENDER_TOL = 1e-4  # card vs CPU: rgb and alpha absolute, depth relative to max(1, |depth|)
 
 
 START = time.perf_counter()
@@ -1902,6 +1954,474 @@ def full_loop_full_width_phase(fwd_case_of, fps_case_of):
     return res, tr, te
 
 
+def f32_check(name, shape, seed, iters=50):
+    """The fp32 (CUDA-core) attention forward against ``attention_plain`` at
+    one more shape: rel L2 and lse gates; host time per call in a loop of
+    calls (launch-bound here), no profiler session."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3))
+    out, lse = attention_fwd_cuda_core(q, k, v)
+    ref_out, ref_lse = attention_plain(q, k, v)
+    rel, err_lse = rel_l2(out, ref_out), (lse - ref_lse).abs().max().item()
+    b_ms, b_by = f32_bound_ms(shape)
+    res = dict(name=name, shape=list(shape), max_abs_err=(out - ref_out).abs().max().item(), rel_l2_err=rel,
+               max_abs_err_lse=err_lse, tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL),
+               host_ms=time_ms(lambda: attention_fwd_cuda_core(q, k, v), iters),
+               plain_host_ms=time_ms(lambda: attention_plain(q, k, v), iters),
+               library_host_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters),
+               bound_ms=b_ms, bound_by=b_by)
+    emit("f32_kernel", **res)
+    if not (rel <= F32_REL_TOL and err_lse <= F32_LSE_TOL and bool(torch.isfinite(out).all())):
+        fail(f"fp32 attention kernel disagrees with the plain version at {name}: rel L2 {rel}, lse {err_lse}")
+    return res
+
+
+def long_flash_case(name, shape, seed, smi, iters=5):
+    """The flash forward at a global shape too large for the plain version's
+    (N, M) scores at once: the plain version runs one head at a time (its
+    time is the loop over the heads), the kernel and SDPA on all heads."""
+    Bq, H, N, M = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((Bq, H, n, 64), dtype=np.float32)).cuda().to(torch.bfloat16)
+               for n in (N, M, M))
+    out, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    qs = (q.float() * 64 ** -0.5).to(q.dtype)
+    err_out = err_lse = 0.0
+    num = den = 0.0
+    for h in range(H):
+        ref_out, ref_lse = attention_plain(qs[:, h:h + 1].float(), k[:, h:h + 1].float(), v[:, h:h + 1].float(), None,
+                                           1.0)
+        d = out[:, h:h + 1].float() - ref_out
+        err_out = max(err_out, d.abs().max().item())
+        err_lse = max(err_lse, (lse[:, h:h + 1] - ref_lse).abs().max().item())
+        num, den = num + float((d * d).sum()), den + float((ref_out * ref_out).sum())
+        del ref_out, ref_lse, d
+    rel_out = (num / den) ** 0.5
+    ok = err_out <= OUT_TOL and rel_out <= OUT_REL_TOL and err_lse <= LSE_TOL and bool(torch.isfinite(out).all())
+
+    def plain_heads():
+        for h in range(H):
+            attention_plain(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1])
+
+    rows = np.full(Bq * H, M, np.float64)
+    k_ms = time_ms(lambda: flash_attention_fwd(q, k, v), iters)
+    b_ms, b_by = bound_ms(Bq * H, N, rows)
+    res = dict(name=name, shape=list(shape), kv_len=None, scale=None, max_abs_err=err_out, rel_l2_err=rel_out,
+               max_abs_err_lse=err_lse, tol=dict(out=OUT_TOL, out_rel_l2=OUT_REL_TOL, lse=LSE_TOL), ms=k_ms,
+               plain_ms=time_ms(plain_heads, 1, warmup=1), plain_note="one head at a time",
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters), bound_ms=b_ms,
+               bound_by=b_by, exp_floor_ms=exp_floor_ms(N, rows),
+               tflops=4.0 * N * 64 * rows.sum() / (k_ms * 1e-3) / 1e12, nvidia_smi=smi, ok=ok)
+    emit("kernel", **res)
+    if not ok:
+        fail(f"flash kernel disagrees with the plain version at {name}: out {err_out} (rel L2 {rel_out}), "
+             f"lse {err_lse}")
+    return res
+
+
+def api_images(seed, views, h, w):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(views)]
+
+
+def read_glb(path):
+    """(JSON chunk, BIN length) of a GLB file, its header and chunk lengths checked."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version, total = struct.unpack("<III", data[:12])
+    n_json, t_json = struct.unpack("<II", data[12:20])
+    n_bin, t_bin = struct.unpack("<II", data[20 + n_json:28 + n_json])
+    if (magic, version, total, t_json, t_bin) != (0x46546C67, 2, len(data), 0x4E4F534A, 0x004E4942) \
+            or 28 + n_json + n_bin != len(data):
+        fail(f"{path}: not a well-formed GLB (magic {magic:#x}, version {version}, length {total} of {len(data)})")
+    return json.loads(data[20:20 + n_json]), n_bin
+
+
+def check_api_exports(d, views):
+    """Read every file of the API's exports back with the port's readers."""
+    gltf, n_bin = read_glb(os.path.join(d, "scene.glb"))
+    n_points = gltf["accessors"][0]["count"]
+    ply = read_ply(os.path.join(d, "gaussians.ply"))
+    cams = read_cameras_bin(os.path.join(d, "colmap", "cameras.bin"))
+    imgs = read_images_bin(os.path.join(d, "colmap", "images.bin"))
+    npz, mini = np.load(os.path.join(d, "prediction.npz")), np.load(os.path.join(d, "prediction_mini.npz"))
+    depth_vis = [imread_rgb(os.path.join(d, f"depth_{i:03d}.png")) for i in range(views)]
+    feat = [imread_rgb(os.path.join(d, f"feat_layer_{API_FEAT_LAYERS[0]}_view{i:02d}.png")) for i in range(views)]
+    res = dict(glb_points=n_points, glb_bin_bytes=n_bin, glb_meshes=len(gltf["meshes"]), ply_vertices=len(ply["x"]),
+               ply_fields=len(ply), colmap_cameras=len(cams), colmap_images=len(imgs),
+               npz_keys=sorted(npz.files), mini_npz_keys=sorted(mini.files),
+               depth_vis=[list(im.shape) for im in depth_vis[:1]], feat_vis=[list(im.shape) for im in feat[:1]])
+    ok = (0 < n_points <= 1_000_000 and len(gltf["meshes"]) == 1 + views and res["ply_vertices"] == API_GAUSSIANS
+          and res["ply_fields"] == 6 + 3 + 24 + 1 + 3 + 4 and len(cams) == len(imgs) == views
+          and all((c["width"], c["height"]) == (504, 280) for c in cams.values())
+          and {"depth", "conf", "extrinsics", "intrinsics", "processed_images"} <= set(npz.files)
+          and {"depth", "conf", "extrinsics", "intrinsics"} <= set(mini.files)
+          and npz["depth"].shape == (views, 280, 504)
+          and all(im.shape == (280, 504, 3) for im in depth_vis)
+          and all(im.shape == (20 * 8, 36 * 8, 3) for im in feat))
+    if not ok:
+        fail(f"da3-api: the exported files read back wrong: {res}")
+    return res
+
+
+def planted_gaussians(n, hw, K, seed):
+    """``n`` Gaussians in the identity camera's frustum: centres uniform over
+    the image at 256 depths in [2, 6) (many equal), footprints of 0.7-2.5 px,
+    opacities 0.1-0.9, degree-2 colours; a frame they cover, where every tile
+    composites its full 192 splats."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    u, v = rng.uniform(0, W, n), rng.uniform(0, H, n)
+    z = 2.0 + rng.integers(0, 256, n) / 64.0
+    means = np.stack([(u - K[0, 2]) * z / K[0, 0], (v - K[1, 2]) * z / K[1, 1], z], 1)
+    scales = (rng.uniform(0.7, 2.5, n) * z / K[0, 0])[:, None] * rng.uniform(0.5, 1.5, (n, 3))
+    rot = rng.normal(size=(n, 4))
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)
+    return Gaussians(means=f32(means), scales=f32(scales), rotations=f32(rot / np.linalg.norm(rot, axis=1, keepdims=True)),
+                     harmonics=f32(0.3 * rng.normal(size=(n, 3, 9))), opacities=f32(rng.uniform(0.1, 0.9, n)))
+
+
+def timed_ms(fn, reps=3):
+    """One warm-up call, then ``reps`` timed calls: (the last result, ms a call)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, times
+
+
+def check_prediction(pred, views, what, gaussians=True):
+    shapes = dict(depth=(views, 280, 504), conf=(views, 280, 504), extrinsics=(views, 3, 4), intrinsics=(views, 3, 3))
+    for key, shp in shapes.items():
+        a = getattr(pred, key)
+        if a is None or a.shape != shp or not np.isfinite(a).all():
+            fail(f"da3-api {what}: {key} of shape {None if a is None else a.shape} or non-finite")
+    if not (pred.depth > 0).all():
+        fail(f"da3-api {what}: a depth is not positive")
+    if not gaussians:
+        return {}
+    g = pred.gaussians
+    n = views * 280 * 504
+    want = dict(means=(1, n, 3), scales=(1, n, 3), rotations=(1, n, 4), harmonics=(1, n, 3, 9), opacities=(1, n))
+    for key, shp in want.items():
+        a = getattr(g, key)
+        if a.shape != shp or not np.isfinite(a).all():
+            fail(f"da3-api {what}: gaussians.{key} of shape {a.shape} or non-finite")
+    quat_err = float(np.abs(np.linalg.norm(g.rotations, axis=-1) - 1.0).max())
+    res = dict(gaussians=n, quat_norm_max_err=quat_err, opacity_range=[float(g.opacities.min()),
+                                                                         float(g.opacities.max())])
+    if quat_err > 1e-4 or g.opacities.min() < 0 or g.opacities.max() > 1:
+        fail(f"da3-api {what}: quaternions or opacities out of range: {res}")
+    return res
+
+
+def raw_gs_hook(model):
+    """A forward hook on the GS head that keeps its last outputs."""
+    kept = {}
+    head = model.da3.gs_head
+    handle = head.register_forward_hook(lambda m, args, out: kept.update(raw=out["raw_gs"].float().clone()))
+    return kept, handle
+
+
+def da3_api_phase(smi, fwd_case_of):
+    """Phase 20: the DA3 API and the da3 CLI at full width (see the module docstring)."""
+    work = tempfile.mkdtemp(prefix="da3_api_")
+    res = {}
+    try:
+        with hub_offline():
+            t0 = time.perf_counter()
+            api = DepthAnything3.from_pretrained(API_MODEL, cache_dir=os.path.join(work, "empty_cache"))
+            torch.cuda.synchronize()
+            model = api.model
+            res["build"] = dict(model=API_MODEL, random_init=api.random_init, build_s=time.perf_counter() - t0,
+                                cv2=importlib.util.find_spec("cv2") is not None,
+                                pil=importlib.util.find_spec("PIL") is not None,
+                                params=sum(p.numel() for p in model.parameters()),
+                                gs_head_params=sum(p.numel() for p in model.da3.gs_head.parameters()))
+            if not api.random_init or model.da3.gs_head is None:
+                fail(f"da3-api: expected the preset's GS head on random weights: {res['build']}")
+            emit("da3_api_build", **res["build"])
+
+            # (a) the CLI's default model on 6 views of 900x1600, every exporter but the video
+            imgs = api_images(900, S, IMG_H, IMG_W)
+            # the random metric branch calls every pixel sky, and a GLB of no point fails in both packages
+            # (export_to_glb takes min/max of the points): the GLB keeps the sky pixels
+            kw = dict(infer_gs=True, export_format=API_FORMATS, export_feat_layers=API_FEAT_LAYERS,
+                      export_kwargs=dict(filter_sky=False, max_depth=None))
+            api.inference(imgs, export_dir=os.path.join(work, "warm"), **kw)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            times = []
+            for r in range(API_CALLS):
+                t0 = time.perf_counter()
+                pred = api.inference(imgs, export_dir=os.path.join(work, f"call{r}"), **kw)
+                times.append(1e3 * (time.perf_counter() - t0))
+            launches = d64_launches(flash_attention_fwd, "da3-api")
+            per_call = {name: launches.get(shape, 0) / API_CALLS for name, shape in API_SHAPES.items()}
+            unchecked = [shape for shape in launches if shape not in fwd_case_of]
+            # the parts of one call: the host preprocessing, the call without exports, the exports alone
+            t0 = time.perf_counter()
+            api.input_processor(imgs)
+            pre_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.inference(imgs, infer_gs=True, export_feat_layers=API_FEAT_LAYERS)
+            no_export_ms = 1e3 * (time.perf_counter() - t0)
+            with torch.inference_mode():  # the device forward alone, then its outputs to the host
+                x = torch.from_numpy(api.input_processor(imgs)[0]).to(api.device)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = model(x, infer_gs=True, export_feat_layers=API_FEAT_LAYERS)
+                torch.cuda.synchronize()
+                forward_ms = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                api.output_processor(out)
+                to_host_ms = 1e3 * (time.perf_counter() - t0)
+                del x, out
+            t0 = time.perf_counter()
+            da3_export(pred, API_FORMATS, os.path.join(work, "export_alone"), conf_thresh_percentile=40.0,
+                       max_points=1_000_000, show_cameras=True, **kw["export_kwargs"])
+            export_ms = 1e3 * (time.perf_counter() - t0)
+            checks = check_prediction(pred, S, "(a)")
+            files = check_api_exports(os.path.join(work, f"call{API_CALLS - 1}"), S)
+            res["a"] = dict(views=S, image=[IMG_H, IMG_W], formats=API_FORMATS, ms_per_call=times,
+                            ms_mean=float(np.mean(times)), preprocess_ms=pre_ms, call_without_export_ms=no_export_ms,
+                            forward_ms=forward_ms, to_host_ms=to_host_ms, export_ms=export_ms,
+                            forward_share_of_call=forward_ms / float(np.mean(times)), flash_launches_by_shape={str(k): n for k, n in launches.items()},
+                            flash_launches_per_call=per_call, **checks, files=files, nvidia_smi=smi)
+            emit("da3_api", **res["a"])
+            if unchecked:
+                fail(f"da3-api: a flash launch at shapes no kernel case checked: {unchecked}")
+            if per_call != EXPECTED_PER_FORWARD:
+                fail(f"da3-api: flash launches per call {per_call}, expected {EXPECTED_PER_FORWARD}")
+
+            # (b) in situ: the same call with the trunks' attention on the plain version
+            kept, handle = raw_gs_hook(model)
+            kw_b = dict(infer_gs=True, ref_view_strategy="first", export_feat_layers=API_FEAT_LAYERS)
+            got = api.inference(imgs, **kw_b)
+            raw_k = kept["raw"]
+            set_attn_impl(model, "plain")
+            ref = api.inference(imgs, **kw_b)
+            set_attn_impl(model, "auto")
+            handle.remove()
+            feat = f"feat_layer_{API_FEAT_LAYERS[0]}"
+            res["b"] = dict(feat_rel_l2=rel_l2(torch.from_numpy(got.aux[feat]), torch.from_numpy(ref.aux[feat])),
+                            raw_gs_rel_l2=rel_l2(raw_k, kept["raw"]),
+                            depth_rel_l2=rel_l2(torch.from_numpy(got.depth), torch.from_numpy(ref.depth)),
+                            tol=dict(feat=FEAT_REL_TOL, raw_gs=FEAT_REL_TOL), depth_gate=None)
+            emit("da3_api_in_situ", **res["b"])
+            # as in phase 6, the gate holds the features and what the heads compute from them linearly (the raw
+            # Gaussians); depth = exp(logit) of a random head amplifies a rounding difference (phase 6 reads 0.17 on
+            # the depth of the same net, ungated), so it is reported beside them
+            if not (res["b"]["feat_rel_l2"] <= FEAT_REL_TOL and res["b"]["raw_gs_rel_l2"] <= FEAT_REL_TOL):
+                fail(f"da3-api in situ: kernel vs plain {res['b']}")
+            del got, ref, raw_k, kept
+
+            # (c) GT poses: the camera encoder's fp32 attention, extrinsics aligned back to the input
+            f32_b1 = f32_check("cam_enc_giant_b1", (1, 16, S, 96), seed=903)
+            ext, ixt = gt_poses(1, S, 904, IMG_H, IMG_W)
+            ext, ixt = ext[0].cpu().numpy(), ixt[0].cpu().numpy()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            posed = api.inference(imgs, extrinsics=ext, intrinsics=ixt, infer_gs=True)
+            pose_ms = 1e3 * (time.perf_counter() - t0)
+            f32_launches = dict(attention_fwd_cuda_core.launches_by_shape)
+            pose_checks = check_prediction(posed, S, "(c)")
+            align_err = float(np.abs(posed.extrinsics - ext[:, :3]).max())
+            res["c"] = dict(ms=pose_ms, extrinsics_max_abs_err=align_err, tol=1e-5,
+                            f32_launches_by_shape={str(k): n for k, n in f32_launches.items()}, **pose_checks,
+                            nvidia_smi=smi)
+            emit("da3_api_poses", **res["c"])
+            if align_err > 1e-5:
+                fail(f"da3-api (c): extrinsics {align_err} from the input")
+            if f32_launches != {(1, 16, S, S, 96): CAM_BLOCKS}:
+                fail(f"da3-api (c): fp32 launches {f32_launches}, expected {CAM_BLOCKS} at (1, 16, {S}, {S}, 96)")
+            # without align_to_input_ext_scale the API returns the input's poses moved by the Umeyama similarity into
+            # the prediction's frame, and leaves the depth undivided: one similarity must map the input onto them
+            # exactly, and its scale is what the depth above was divided by
+            unscaled = api.inference(imgs, extrinsics=ext, intrinsics=ixt, align_to_input_ext_scale=False)
+            check_prediction(unscaled, S, "(c) unscaled", gaussians=False)
+            _, _, sim_scale, refit = align_poses_umeyama(unscaled.extrinsics, ext, return_aligned=True)
+            pose_scale = max(1.0, float(np.abs(unscaled.extrinsics).max()))
+            res["c"]["unscaled"] = dict(
+                similarity_max_abs_err=float(np.abs(refit[:, :3] - unscaled.extrinsics).max()) / pose_scale,
+                similarity_scale=float(sim_scale),
+                depth_ratio=float(np.median(unscaled.depth / posed.depth)), moved_from_input=float(
+                    np.abs(unscaled.extrinsics - ext[:, :3]).max()), tol=1e-4)
+            emit("da3_api_poses_unscaled", **res["c"]["unscaled"])
+            u = res["c"]["unscaled"]
+            if not (u["similarity_max_abs_err"] <= 1e-4 and abs(u["depth_ratio"] / u["similarity_scale"] - 1) <= 1e-4):
+                fail(f"da3-api (c): the unscaled poses are no similarity of the input at the depth's scale: {u}")
+            del posed, unscaled
+
+            # (d) pose from the ray head
+            t0 = time.perf_counter()
+            rayed = api.inference(imgs, use_ray_pose=True)
+            ray_ms = 1e3 * (time.perf_counter() - t0)
+            check_prediction(rayed, S, "(d)", gaussians=False)
+            fx, fy = rayed.intrinsics[:, 0, 0], rayed.intrinsics[:, 1, 1]
+            res["d"] = dict(ms=ray_ms, fx=fx.tolist(), fy=fy.tolist(), nvidia_smi=smi)
+            emit("da3_api_ray_pose", **res["d"])
+            if not ((fx > 0).all() and (fy > 0).all()):
+                fail(f"da3-api (d): focal lengths not positive: {res['d']}")
+            del rayed
+
+            # (e) the CLI as a user runs it, on PNGs written by the port and on the COLMAP model (a) exported
+            png_dir = os.path.join(work, "pngs")
+            os.makedirs(png_dir)
+            for i, im in enumerate(imgs):
+                write_png(os.path.join(png_dir, f"view_{i:03d}.png"), im)
+            colmap_dir = os.path.join(work, "colmap_model")
+            os.makedirs(os.path.join(colmap_dir, "sparse"))
+            shutil.copytree(os.path.join(work, f"call{API_CALLS - 1}", "colmap"), os.path.join(colmap_dir, "sparse", "0"))
+            os.makedirs(os.path.join(colmap_dir, "images"))
+            for i, im in enumerate(pred.processed_images):
+                write_png(os.path.join(colmap_dir, "images", f"view_{i:03d}.png"), im)
+            res["e"] = {}
+            # no GLB here: the CLI keeps the sky filter, and the random net's cloud is all sky (see (a))
+            for kind, src, fmt, want in (("images", png_dir, "mini_npz-depth_vis",
+                                          sorted(["prediction_mini.npz"] + [f"depth_{i:03d}.png" for i in range(S)])),
+                                         ("colmap", colmap_dir, "npz-colmap", ["colmap", "prediction.npz"])):
+                out = os.path.join(work, f"cli_{kind}")
+                t0 = time.perf_counter()
+                proc = subprocess.run([sys.executable, "-m", "recondet3d_torch.cli.da3", kind, src, "--export-dir", out,
+                                       "--export-format", fmt, "--cache-dir", os.path.join(work, "empty_cache")],
+                                      cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                                      timeout=900)
+                written = sorted(os.listdir(out)) if os.path.isdir(out) else []
+                res["e"][kind] = dict(rc=proc.returncode, s=time.perf_counter() - t0, files=written,
+                                      stdout_tail=proc.stdout[-300:])
+                if proc.returncode != 0 or written != want:
+                    fail(f"da3-api (e): da3 {kind} exited {proc.returncode} with {written}: {proc.stderr[-3000:]}")
+            emit("da3_api_cli", **res["e"])
+            if not np.allclose(np.load(os.path.join(work, "cli_colmap", "prediction.npz"))["extrinsics"],
+                               pred.extrinsics, atol=1e-5):
+                fail("da3-api (e): da3 colmap did not return the model's poses")
+
+            # (g) the renderer along export_to_gs_video's path, at 280x504, on its default device (numpy in: the card)
+            r_ext, r_ixt = interpolate_camera_path(pred.extrinsics, pred.intrinsics, n_frames=TRAJ_FRAMES)
+            (rgb, dep, alpha), traj_ms = timed_ms(lambda: render_3dgs(pred.gaussians, r_ext, r_ixt, (280, 504)), reps=1)
+            res["g"] = dict(frames=TRAJ_FRAMES, hw=[280, 504], gaussians=API_GAUSSIANS, device=str(rgb.device),
+                            ms_per_frame=traj_ms[0] / TRAJ_FRAMES,
+                            rgb_finite=bool(torch.isfinite(rgb).all()), depth_finite=bool(torch.isfinite(dep).all()),
+                            alpha_range=[alpha.min().item(), alpha.max().item()],
+                            alpha_mean=alpha.mean().item(), nvidia_smi=smi)
+            if not (rgb.is_cuda and res["g"]["rgb_finite"] and res["g"]["depth_finite"]
+                    and 0 <= res["g"]["alpha_range"][0] and res["g"]["alpha_range"][1] <= 1):
+                fail(f"da3-api (g): rendered frames {res['g']}")
+            del rgb, dep, alpha
+            # the exporter's own render call (export_to_gs_video -> render_trajectory_video), on the API's device
+            frames, frames_ms = timed_ms(lambda: render_trajectory_frames(pred.gaussians, r_ext, r_ixt, (280, 504),
+                                                                          device=api.device), reps=1)
+            res["g"]["exporter_render_ms_per_frame"] = frames_ms[0] / TRAJ_FRAMES
+            if frames.shape != (TRAJ_FRAMES, 280, 504, 3):
+                fail(f"da3-api (g): the exporter's frames are {frames.shape}")
+            video_dir = os.path.join(work, "gs_video")
+            if importlib.util.find_spec("cv2") is None:
+                try:
+                    da3_export(pred, "gs_video", video_dir, device=api.device)
+                except ImportError as e:
+                    res["g"]["gs_video"] = f"ImportError: {e}"
+                    if "cv2" not in str(e):
+                        fail(f"da3-api (g): gs_video raised an ImportError that does not name cv2: {e}")
+                else:
+                    fail("da3-api (g): gs_video ran without cv2")
+            else:  # the exporter as the API calls it, with the device each render ran on
+                seen, render = [], gs_renderer.render_3dgs
+                gs_renderer.render_3dgs = lambda *a, **kw: (lambda out: seen.append(str(out[0].device)) or out)(
+                    render(*a, **kw))
+                try:
+                    t0 = time.perf_counter()
+                    da3_export(pred, "gs_video", video_dir, device=api.device)
+                    res["g"]["gs_video_export_ms"] = 1e3 * (time.perf_counter() - t0)
+                finally:
+                    gs_renderer.render_3dgs = render
+                res["g"]["gs_video"] = sorted(os.listdir(video_dir))
+                res["g"]["gs_video_render_devices"] = seen
+                if seen != [str(torch.device("cuda", torch.cuda.current_device()))] or res["g"]["gs_video"] != [
+                        "gs_video.mp4"]:
+                    fail(f"da3-api (g): the gs_video export rendered on {seen} and wrote {res['g']['gs_video']}")
+            # a frame the cloud fills: the same number of Gaussians planted in the frustum, every tile at its 192
+            # splats, held to the same renderer on the CPU; timed again with the JAX package's 4,096-Gaussian blocks
+            planted = planted_gaussians(API_GAUSSIANS, (280, 504), PLANTED_K, seed=930)
+            eye = np.eye(4, dtype=np.float32)[None]
+            (rgb_p, dep_p, alpha_p), planted_ms = timed_ms(lambda: render_3dgs(planted, eye, PLANTED_K[None],
+                                                                               (280, 504)))
+            block = gs_renderer.BLOCK
+            gs_renderer.BLOCK = 4096
+            try:
+                _, planted_ms_4096 = timed_ms(lambda: render_3dgs(planted, eye, PLANTED_K[None], (280, 504)))
+            finally:
+                gs_renderer.BLOCK = block
+            t0 = time.perf_counter()
+            rgb_c, dep_c, alpha_c = render_3dgs(planted, eye, PLANTED_K[None], (280, 504), device="cpu")
+            cpu_s = time.perf_counter() - t0
+            rgb_p, dep_p, alpha_p = rgb_p.cpu(), dep_p.cpu(), alpha_p.cpu()
+            res["g"]["planted_frame"] = dict(
+                gaussians=API_GAUSSIANS, ms=planted_ms, ms_blocks_4096=planted_ms_4096, cpu_s=cpu_s,
+                covered_share=(alpha_p > 0).float().mean().item(), alpha_mean=alpha_p.mean().item(),
+                rgb_max_abs_err=(rgb_p - rgb_c).abs().max().item(),
+                alpha_max_abs_err=(alpha_p - alpha_c).abs().max().item(),
+                depth_max_rel_err=(dep_p - dep_c).abs().max().item() / max(1.0, dep_c.abs().max().item()),
+                tol=RENDER_TOL, min_covered_share=PLANTED_MIN_COVERED)
+            pf = res["g"]["planted_frame"]
+            if not (pf["covered_share"] >= PLANTED_MIN_COVERED and max(pf["rgb_max_abs_err"], pf["alpha_max_abs_err"],
+                                                                        pf["depth_max_rel_err"]) <= RENDER_TOL):
+                fail(f"da3-api (g): the planted frame {pf}")
+            del rgb_p, dep_p, alpha_p, rgb_c, dep_c, alpha_c, planted, frames
+            emit("da3_api_render", **res["g"])
+            del pred
+
+            # (f) 32 views (the CLI's --max-frames default) at 280x504, no export: the flash kernel at the new shapes
+            long_cases = {name: kernel_case(f"{name}_s{API_LONG_S}", shape, None, seed=910 + i, iters=5)
+                          for i, (name, shape) in enumerate(API_LONG_SHAPES.items()) if name != "vitg_global"}
+            long_cases["vitg_global"] = long_flash_case(f"vitg_global_s{API_LONG_S}", API_LONG_SHAPES["vitg_global"],
+                                                        seed=913, smi=smi)
+            res["f"] = dict(long_cases=long_cases)
+            for views in (API_LONG_S, 16):
+                imgs_f = api_images(920, views, 280, 504)
+                try:
+                    api.inference(imgs_f, infer_gs=True)  # warm-up
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    long_pred = api.inference(imgs_f, infer_gs=True)
+                    torch.cuda.synchronize()
+                except torch.cuda.OutOfMemoryError as e:  # the phase reports the error at 32 and the peak at 16
+                    res["f"][f"s{views}_error"] = str(e)[:500]
+                    torch.cuda.empty_cache()
+                    continue
+                ms = 1e3 * (time.perf_counter() - t0)
+                long_launches = d64_launches(flash_attention_fwd, "da3-api (f)")
+                check_prediction(long_pred, views, f"(f) at {views} views")
+                res["f"][f"s{views}"] = dict(views=views, ms=ms, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                             flash_launches_by_shape={str(k): n for k, n in long_launches.items()},
+                                             nvidia_smi=smi)
+                if views == API_LONG_S:
+                    expected = {API_LONG_SHAPES[name]: n for name, n in EXPECTED_PER_FORWARD.items()}
+                    if long_launches != expected:
+                        fail(f"da3-api (f): flash launches {long_launches}, expected {expected}")
+                    break
+                del long_pred
+            if f"s{API_LONG_S}" not in res["f"] and "s16" not in res["f"]:
+                fail(f"da3-api (f): neither 32 nor 16 views ran: {res['f']}")
+            emit("da3_api_long", **{k: v for k, v in res["f"].items() if k != "long_cases"})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches"] = sum(launches.values())
+    res["f32_launches"] = sum(f32_launches.values())
+    res["f32_case"] = f32_b1
+    return res
+
+
 # the kernels on wgmma / TMA / mbarriers, one name a template instance: the forward and dk/dv as <DC, EDGE> (64-column
 # chunks of the head dim; a last chunk partly past D)
 HOPPER_KERNELS = tuple(f"{kernel}<{dc},{edge}>" for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -2329,6 +2849,9 @@ def main(argv=None):
     loop_tiny, tiny_fwd_case_of, tiny_fps_case_of, loop_tr, loop_te = full_loop_tiny_phase(exchange_us)
     # 19. the same CLIs on the production detection config at full width
     loop_full, full_tr, full_te = full_loop_full_width_phase(dict(fwd_case_of), det_fps_case_of)
+    torch.cuda.empty_cache()
+    # 20. the DA3 public API and the da3 CLI at full width
+    api_res = da3_api_phase(smi, dict(fwd_case_of))
     # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
@@ -2502,6 +3025,16 @@ def main(argv=None):
         row["launches_full_loop_tiny"] = dict(train=sum(loop_tr[kind].values()), test=sum(loop_te[kind].values()))
         row["launches_full_loop_full_width"] = dict(train=sum(full_tr[kind].values()),
                                                     test=sum(full_te[kind].values()))
+    api_long = list(api_res["f"]["long_cases"].values())
+    table["kernels"][0].update(
+        launches_da3_api=api_res["launches"], da3_api_per=f"{API_CALLS} API calls of 6 views (phase 20a)",
+        da3_api_shapes=api_long,
+        max_abs_err=max(table["kernels"][0]["max_abs_err"], max(c["max_abs_err"] for c in api_long)))
+    cc_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_fwd")
+    cc_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
+                  max_abs_err=max(cc_row["max_abs_err"], api_res["f32_case"]["max_abs_err"]))
+    table["da3_api"] = {k: v for k, v in api_res.items() if k not in ("f32_case",)}
+    table["da3_api"]["f"] = {k: v for k, v in api_res["f"].items() if k != "long_cases"}
     table["detection"] = det_res
     table["full_loop"] = {name: {k: v for k, v in res.items() if k not in ("logged", "train_tail", "test_tail")}
                           for name, res in (("tiny", loop_tiny), ("full_width", loop_full))}

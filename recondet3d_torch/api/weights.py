@@ -70,12 +70,14 @@ _PREFIXES = [
     ("anyview/head/", "da3.head."),
     ("anyview/cam_enc/", "da3.cam_enc."),
     ("anyview/cam_dec/", "da3.cam_dec."),
+    ("anyview/gs_head/", "da3.gs_head."),
     ("metric/net/", "da3_metric.backbone.pretrained."),
     ("metric/head/", "da3_metric.head."),
     ("net/", "backbone.pretrained."),
     ("head/", "head."),
     ("cam_enc/", "cam_enc."),
     ("cam_dec/", "cam_dec."),
+    ("gs_head/", "gs_head."),
 ]
 
 # inside a module, applied in order to the rest of the path
@@ -94,6 +96,7 @@ _REWRITES = [
     (re.compile(r"(^|/)(layer\d_rn|refinenet\d(?:_aux)?|output_conv1)/"), r"\1scratch.\2/"),
     (re.compile(r"(^|/)backbone_(\d+)/"), r"\1backbone.\2/"),
     (re.compile(r"(^|/)fc_fov_0/"), r"\1fc_fov.0/"),
+    (re.compile(r"(^|/)images_merger_(\d+)/"), r"\1images_merger.\2/"),  # GSDPT's image merger
     (re.compile(r"(^|/)task_(\d+)/"), r"\1branches.\2/"),  # CenterHead's per-task branches
 ]
 

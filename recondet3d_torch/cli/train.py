@@ -112,7 +112,8 @@ def build_model_from_cfg(cfg, device="cuda", generator: Optional[torch.Generator
             head_cfg["tasks"] = tuple(tuple(t) for t in head_cfg["tasks"])
 
     tuned = {} if freeze else dict(param_dtype=torch.float32, remat=True)
-    da3 = build_da3(rb.get("pretrained", "da3-large"), dtype=dtype, device=dev, generator=generator, **tuned)
+    da3 = build_da3(rb.get("pretrained", "da3-large"), dtype=dtype, device=dev, generator=generator, with_gs=False,
+                    **tuned)  # no Gaussian-splat head: the detector never calls it
     refinement = SparseRefinement(dtype=dtype, device=dev, **ref_kwargs)
     head = None
     if head_cfg:

@@ -1,24 +1,29 @@
-"""DA3 input processing on the device (port of
-``recondet3d/data/input_processor.py`` ``compute_process_shape`` and
-``process_tensor_batch``): aspect-preserving resize to ``process_res``,
-patch-14 alignment, ImageNet normalization, intrinsics rescale.
+"""DA3 input processing (port of ``recondet3d/data/input_processor.py``):
+aspect-preserving resize to ``process_res``, patch-14 alignment, ImageNet
+normalization, intrinsics rescale.
 
-The host list-of-images path (``InputProcessor``, PIL and cv2's INTER_AREA /
-INTER_CUBIC) belongs to the DA3 API and is ROADMAP item 13. The training and
-test CLIs read their images through ``data/image_io.py`` and hand this
-module float tensors.
+- ``process_tensor_batch`` runs on the device, where its images lie (the
+  ResDet3D backbone's path and the training and test CLIs, which read their
+  images through ``data/image_io.py``).
+- ``InputProcessor`` is the DA3 API's list-of-images path on the host: it
+  loads paths, uint8 arrays and PIL images, resizes each with cv2's
+  INTER_AREA when it shrinks the width and INTER_CUBIC otherwise, as the
+  JAX package does, through the PyTorch resamplers of ``data/image_io.py``
+  (no cv2 or PIL needed for PNG, PPM and arrays).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from recondet3d_torch.data.image_io import imread_rgb, resize_area, resize_cubic
 from recondet3d_torch.utils.constants import IMAGENET_MEAN, IMAGENET_STD, PATCH_SIZE
 from recondet3d_torch.utils.interpolation import interpolate_nchw
 
-__all__ = ["process_tensor_batch", "compute_process_shape"]
+__all__ = ["InputProcessor", "process_tensor_batch", "compute_process_shape"]
 
 
 def _nearest_multiple(x: int, p: int) -> int:
@@ -74,3 +79,53 @@ def process_tensor_batch(images: torch.Tensor, intrinsics: Optional[torch.Tensor
                              dtype=intrinsics.dtype, device=intrinsics.device)
         intrinsics = intrinsics * scale
     return x, intrinsics
+
+
+class InputProcessor:
+    """Host-side list-of-images path for the DA3 public API."""
+
+    PATCH_SIZE = PATCH_SIZE
+
+    def __init__(self, process_res: int = 504, process_res_method: str = "upper_bound_resize"):
+        self.process_res = process_res
+        self.process_res_method = process_res_method
+
+    def __call__(self, images: Sequence, extrinsics: Optional[np.ndarray] = None,
+                 intrinsics: Optional[np.ndarray] = None):
+        """images: list of HxWx3 uint8 arrays / PIL images / paths.
+        Returns (batch (1, N, H', W', 3) float32 normalized, extrinsics,
+        intrinsics, processed uint8 images (N, H', W', 3))."""
+        arrs = [self._load(im) for im in images]
+        processed, k_out = [], []
+        for i, arr in enumerate(arrs):
+            H, W = arr.shape[:2]
+            _, _, fH, fW = compute_process_shape(H, W, self.process_res, self.process_res_method)
+            resize = resize_area if fW < W else resize_cubic
+            processed.append(resize(arr, (fH, fW)))
+            if intrinsics is not None:
+                k = np.array(intrinsics[i], np.float64).copy()
+                k[0] *= fW / W
+                k[1] *= fH / H
+                k_out.append(k)
+
+        shapes = {p.shape for p in processed}
+        if len(shapes) != 1:
+            raise ValueError(f"views disagree on processed shape: {shapes}")
+        raw = np.stack(processed)  # (N, H', W', 3) uint8
+        x = raw.astype(np.float32) / 255.0
+        x = (x - np.asarray(IMAGENET_MEAN, np.float32)) / np.asarray(IMAGENET_STD, np.float32)
+        batch = x[None]
+        k_arr = np.stack(k_out)[None] if k_out else None
+        e_arr = np.asarray(extrinsics, np.float32)[None] if extrinsics is not None else None
+        return batch, e_arr, k_arr, raw
+
+    @staticmethod
+    def _load(im) -> np.ndarray:
+        if isinstance(im, str):
+            return imread_rgb(im, prefer_pil=True)
+        if hasattr(im, "convert"):  # a PIL image
+            return np.asarray(im.convert("RGB"))
+        arr = np.asarray(im)
+        if arr.ndim != 3 or arr.shape[-1] != 3:
+            raise ValueError(f"bad image shape {arr.shape}")
+        return arr

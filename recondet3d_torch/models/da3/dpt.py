@@ -1,12 +1,13 @@
 """DPT dense-prediction heads, fp32 (port of ``recondet3d/models/da3/dpt.py``
-``DPT`` and ``DualDPT``; ``GSDPT`` waits for ROADMAP item 13).
+``DPT``, ``DualDPT`` and ``GSDPT``).
 
 The public tensors keep the JAX layouts (tokens (B, S, N, C), outputs
 (B, S, H', W') and channels-last ray maps); the convolutions run NCHW.
 Module names follow the upstream DA3 state dict (``projects.i``,
 ``resize_layers.i``, ``scratch.refinenetK``, ``scratch.output_conv2.0``, ...).
 DualDPT's auxiliary levels 0-2 are dead at inference and, as in the JAX
-package, are not built.
+package, are not built. GSDPT's image merger (three 3x3 convolutions, each
+followed by an exact GELU) is ``images_merger.{0,2,4}``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch.nn.functional as F
 
 from recondet3d_torch.utils.interpolation import interpolate_nchw
 
-__all__ = ["DPT", "DualDPT", "apply_activation", "create_uv_grid", "position_grid_to_embed"]
+__all__ = ["DPT", "DualDPT", "GSDPT", "apply_activation", "activate_head_gs", "create_uv_grid",
+           "position_grid_to_embed"]
 
 
 def apply_activation(x, activation: str):
@@ -41,6 +43,26 @@ def apply_activation(x, activation: str):
     if a == "tanh":
         return torch.tanh(x)
     return x
+
+
+def activate_head_gs(fmap, activation="norm_exp", conf_activation="expp1", conf_dim=1):
+    """fmap: (..., C) channels-last -> (pts3d, conf)."""
+    xyz = fmap[..., :-conf_dim]
+    conf = fmap[..., -1] if conf_dim == 1 else fmap[..., -conf_dim:]
+    if activation == "norm_exp":
+        d = torch.clamp(torch.linalg.norm(xyz, dim=-1, keepdim=True), min=1e-8)
+        pts3d = xyz / d * torch.expm1(d)
+    elif activation == "norm":
+        pts3d = xyz / torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    else:
+        pts3d = apply_activation(xyz, activation)
+    if conf_activation == "expp1":
+        conf_out = 1 + torch.exp(conf)
+    elif conf_activation == "expp0":
+        conf_out = torch.exp(conf)
+    else:
+        conf_out = apply_activation(conf, conf_activation)
+    return pts3d, conf_out
 
 
 def create_uv_grid(width: int, height: int, aspect_ratio: Optional[float] = None) -> np.ndarray:
@@ -304,3 +326,42 @@ class DualDPT(_DPTCommon):
         outs[head_aux] = aux_logits[:, :-1].permute(0, 2, 3, 1).reshape(B, S, ah, aw, 6)
         outs[f"{head_aux}_conf"] = apply_activation(aux_logits[:, -1], self.conf_activation).reshape(B, S, ah, aw)
         return outs
+
+
+class GSDPT(_DPTCommon):
+    """Gaussian-splat head: the DPT trunk + an image merger -> ``raw_gs``
+    (B, S, H', W', output_dim - 1) and ``raw_gs_conf`` (B, S, H', W')."""
+
+    def __init__(self, dim_in, output_dim, features, out_channels, patch_size=14, pos_embed=True,
+                 down_ratio=1, norm_type="idt", activation="linear", conf_activation="sigmoid", conf_dim=1,
+                 head_name="raw_gs", device="cuda"):
+        super().__init__(dim_in, features, out_channels, patch_size, pos_embed, down_ratio, norm_type, device)
+        self.activation = activation
+        self.conf_activation = conf_activation
+        self.conf_dim = conf_dim
+        self.head_name = head_name
+        f = features
+        self._add_refinenets("", device)
+        self.scratch.output_conv1 = _conv3(f, f // 2, device)
+        self.scratch.output_conv2 = _HeadConv2(f // 2, 32, output_dim, device=device)
+        m = f // 2
+        self.images_merger = nn.Sequential(
+            _conv3(3, m // 4, device), nn.GELU(), _conv3(m // 4, m // 2, device), nn.GELU(),
+            _conv3(m // 2, m, device), nn.GELU())
+
+    def forward(self, feats, H: int, W: int, images=None, patch_start_idx: int = 0) -> Dict[str, torch.Tensor]:
+        """images: (B, S, H, W, 3), the net's input images."""
+        B, S = feats[0][0].shape[:2]
+        out = self.scratch.output_conv1(self._fuse(self._pyramid(feats, H, W, patch_start_idx)))
+        h_out, w_out = self._out_hw(H, W)
+        fused = _interp(out, (h_out, w_out))
+        imgs = images.reshape(B * S, H, W, 3).float().permute(0, 3, 1, 2)
+        fused = fused + self.images_merger(imgs)
+        if self.pos_embed:
+            fused = _add_pos_embed(fused, W, H)
+        logits = self.scratch.output_conv2(fused).permute(0, 2, 3, 1)  # channels-last, as activate_head_gs reads
+        pred, conf = activate_head_gs(logits, self.activation, self.conf_activation, self.conf_dim)
+        return {
+            self.head_name: pred.reshape(B, S, h_out, w_out, -1),
+            f"{self.head_name}_conf": conf.reshape(B, S, h_out, w_out),
+        }

@@ -1,13 +1,18 @@
 """DA3 network assembly (port of ``recondet3d/models/da3/net.py``): backbone +
-heads, and the nested any-view + metric net joined by least-squares scale
-alignment. The backbone runs in its dtype (bf16 on the card); heads and
-camera math run fp32. Guards are tensor ``where``s, so a forward makes no
-host synchronisation.
+heads (depth, camera, ray pose, Gaussian splats), and the nested any-view +
+metric net joined by least-squares scale alignment. The backbone runs in its
+dtype (bf16 on the card); heads and camera math run fp32. Guards are tensor
+``where``s, so a forward of depth and cameras makes no host synchronisation
+(the ray-pose and GS branches may).
+
+As in the JAX package (``net.py:110-158``), ``_ray_pose`` stores the
+camera-to-world 3x4 matrix under ``"extrinsics"``, and ``_gs`` hands the GS
+head the normalised images the net was given.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -22,37 +27,34 @@ from recondet3d_torch.utils.alignment import (
     set_sky_regions_to_max_depth,
 )
 from recondet3d_torch.utils.constants import PATCH_SIZE
-from recondet3d_torch.utils.geometry import affine_inverse
+from recondet3d_torch.utils.geometry import affine_inverse, as_homogeneous, map_pdf_to_opacity
+from recondet3d_torch.utils.ray_utils import get_extrinsic_from_camray
 from recondet3d_torch.utils.transforms import pose_encoding_to_extri_intri
 
 __all__ = ["DepthAnything3Net", "NestedDepthAnything3Net"]
 
 
-def _unported(option: str, item: str):
-    return NotImplementedError(f"{option} is not ported yet (ROADMAP §1 item {item})")
-
-
 class DepthAnything3Net(nn.Module):
-    """Backbone (``backbone.pretrained``) + head (+ cam_dec / cam_enc)."""
+    """Backbone (``backbone.pretrained``) + head (+ cam_dec / cam_enc, + the
+    Gaussian-splat head ``gs_head`` and its parameter-free ``gs_adapter``)."""
 
     def __init__(self, net: nn.Module, head: nn.Module, cam_dec: Optional[nn.Module] = None,
-                 cam_enc: Optional[nn.Module] = None):
+                 cam_enc: Optional[nn.Module] = None, gs_head: Optional[nn.Module] = None,
+                 gs_adapter: Optional[Any] = None):
         super().__init__()
         self.backbone = nn.Module()
         self.backbone.pretrained = net
         self.head = head
         self.cam_dec = cam_dec
         self.cam_enc = cam_enc
+        self.gs_head = gs_head
+        self.gs_adapter = gs_adapter
 
     def forward(self, x, extrinsics=None, intrinsics=None, export_feat_layers: Sequence[int] = (),
                 infer_gs: bool = False, use_ray_pose: bool = False,
                 ref_view_strategy: str = "saddle_balanced") -> Dict[str, torch.Tensor]:
         """x: (B, S, H, W, 3) normalized images. Returns depth/depth_conf/(sky)/
-        extrinsics/intrinsics/(aux)."""
-        if use_ray_pose:
-            raise _unported("use_ray_pose=True (utils/ray_utils.py)", "13")
-        if infer_gs:
-            raise _unported("infer_gs=True (GSDPT + GaussianAdapter)", "13")
+        extrinsics/intrinsics/(gaussians)/(aux)."""
         B, S, H, W, _ = x.shape
 
         cam_token = None
@@ -64,11 +66,17 @@ class DepthAnything3Net(nn.Module):
             ref_view_strategy=ref_view_strategy,
         )
         if isinstance(self.head, DualDPT):
-            # the ray branch is dropped unused when a camera decoder gives the pose
-            output = dict(self.head(feats, H, W, patch_start_idx=0, with_aux=self.cam_dec is None))
+            # the ray branch is dropped unused when a camera decoder gives the pose and the rays are not asked for
+            output = dict(self.head(feats, H, W, patch_start_idx=0,
+                                    with_aux=self.cam_dec is None or use_ray_pose))
         else:
             output = dict(self.head(feats, H, W, patch_start_idx=0))
-        output = self._camera_estimation(feats, H, W, output)
+        if use_ray_pose:
+            output = self._ray_pose(output, H, W)
+        else:
+            output = self._camera_estimation(feats, H, W, output)
+        if infer_gs and self.gs_head is not None:
+            output = self._gs(feats, H, W, output, x, extrinsics)
         output = self._mono_sky(output)
 
         if export_feat_layers:
@@ -87,6 +95,43 @@ class DepthAnything3Net(nn.Module):
         c2w, ixt = pose_encoding_to_extri_intri(pose_enc, (H, W))
         output["extrinsics"] = affine_inverse(c2w)
         output["intrinsics"] = ixt
+        return output
+
+    def _ray_pose(self, output, H, W):
+        """Pose and intrinsics from the ray head (RANSAC homographies per view)."""
+        if "ray" not in output:
+            return output
+        ray = output.pop("ray")
+        ray_conf = output.pop("ray_conf")
+        extr_w2c, focal, pp = get_extrinsic_from_camray(ray, ray_conf, ray.shape[-3], ray.shape[-2])
+        c2w = affine_inverse(extr_w2c)[..., :3, :]
+        zeros = torch.zeros_like(focal[..., 0])
+        ones = torch.ones_like(zeros)
+        fx = focal[..., 0] / 2 * W
+        fy = focal[..., 1] / 2 * H
+        cx = pp[..., 0] * W * 0.5
+        cy = pp[..., 1] * H * 0.5
+        output["extrinsics"] = c2w
+        output["intrinsics"] = torch.stack([
+            torch.stack([fx, zeros, cx], -1),
+            torch.stack([zeros, fy, cy], -1),
+            torch.stack([zeros, zeros, ones], -1),
+        ], dim=-2)
+        return output
+
+    def _gs(self, feats, H, W, output, images, gt_extrinsics):
+        if "depth" not in output:
+            raise ValueError("the GS head needs multi-view depth")
+        gs_outs = self.gs_head(feats, H, W, images=images, patch_start_idx=0)
+        output["gaussians"] = self.gs_adapter(
+            extrinsics=as_homogeneous(output["extrinsics"]),
+            intrinsics=output["intrinsics"],
+            depths=output["depth"],
+            opacities=map_pdf_to_opacity(gs_outs["raw_gs_conf"]),
+            raw_gaussians=gs_outs["raw_gs"],
+            image_shape=(H, W),
+            gt_extrinsics=None if gt_extrinsics is None else as_homogeneous(gt_extrinsics),
+        )
         return output
 
     def _mono_sky(self, output):

@@ -8,26 +8,35 @@ from typing import Optional
 import torch
 
 from recondet3d_torch.models.da3.cam import CameraDec, CameraEnc
-from recondet3d_torch.models.da3.dpt import DPT, DualDPT
+from recondet3d_torch.models.da3.dpt import DPT, DualDPT, GSDPT
+from recondet3d_torch.models.da3.gs_adapter import GaussianAdapter
 from recondet3d_torch.models.da3.layers import init_parameters_
 from recondet3d_torch.models.da3.net import DepthAnything3Net, NestedDepthAnything3Net
 from recondet3d_torch.models.da3.vit import DinoViT
 from recondet3d_torch.utils.device import resolve_device
 
-__all__ = ["build_da3", "PRESETS", "MODEL_REGISTRY"]
+__all__ = ["build_da3", "materialize_", "PRESETS", "MODEL_REGISTRY"]
 
 
 def _anyview(vit_name, out_layers, alt_start, head_dim_in, features, out_channels, cam_dim, dtype,
-             device, **vit_kw):
+             device, with_gs=False, **vit_kw):
     net = DinoViT(
         name_preset=vit_name, out_layers=tuple(out_layers), alt_start=alt_start,
         qknorm_start=alt_start, rope_start=alt_start, cat_token=True, dtype=dtype, device=device, **vit_kw,
     )
     head = DualDPT(dim_in=head_dim_in, output_dim=2, features=features,
                    out_channels=tuple(out_channels), device=device)
+    gs = {}
+    if with_gs:
+        gs = dict(
+            gs_head=GSDPT(dim_in=head_dim_in, output_dim=38, features=features, out_channels=tuple(out_channels),
+                          device=device),
+            gs_adapter=GaussianAdapter(sh_degree=2, pred_color=False, pred_offset_depth=True, pred_offset_xy=True,
+                                       gaussian_scale_min=1e-5, gaussian_scale_max=30.0),
+        )
     return DepthAnything3Net(
         net=net, head=head, cam_enc=CameraEnc(dim_out=cam_dim, device=device),
-        cam_dec=CameraDec(dim_in=head_dim_in, device=device),
+        cam_dec=CameraDec(dim_in=head_dim_in, device=device), **gs,
     )
 
 
@@ -49,7 +58,8 @@ PRESETS = {
     "da3-large": dict(vit="vitl", out_layers=(11, 15, 19, 23), alt_start=8,
                       head_dim_in=2048, features=256, out_channels=(256, 512, 1024, 1024), cam_dim=1024),
     "da3-giant": dict(vit="vitg", out_layers=(19, 27, 33, 39), alt_start=13,
-                      head_dim_in=3072, features=256, out_channels=(256, 512, 1024, 1024), cam_dim=1536),
+                      head_dim_in=3072, features=256, out_channels=(256, 512, 1024, 1024), cam_dim=1536,
+                      with_gs=True),
 }
 
 MODEL_REGISTRY = [
@@ -72,13 +82,11 @@ def build_da3(name: str, dtype=torch.bfloat16, with_gs: Optional[bool] = None,
     activation checkpointing, the JAX package's ``remat_policy="block"``;
     its other policies are not ported).
     ``device`` defaults to CUDA and raises where CUDA is absent; ``"meta"``
-    builds shapes only. On CUDA this turns TF32 off for matmuls and cuDNN
-    convolutions, so fp32 heads run in full fp32 as in the JAX package.
-    The Gaussian-splat head is not ported: ``with_gs=True`` raises, and the
-    default builds without it.
+    builds shapes only (``materialize_``).
+    ``with_gs`` builds the Gaussian-splat head (``GSDPT`` + ``GaussianAdapter``);
+    ``None`` takes the preset's default, as the JAX package does: da3-giant and
+    the nested net build it, the other presets do not.
     """
-    if with_gs:
-        raise NotImplementedError("with_gs=True: GSDPT is not ported yet (ROADMAP §1 item 13)")
     if remat_policy != "block":
         raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported yet (ROADMAP §1 item 11); "
                                   "'block' is")
@@ -90,6 +98,7 @@ def build_da3(name: str, dtype=torch.bfloat16, with_gs: Optional[bool] = None,
     elif key == "da3nested-giant-large":
         cfg = dict(PRESETS["da3-giant"])
         vit = cfg.pop("vit")
+        cfg["with_gs"] = cfg["with_gs"] if with_gs is None else with_gs
         build = lambda d: NestedDepthAnything3Net(
             anyview=_anyview(vit, dtype=dtype, device=d, **cfg, **vit_kw),
             metric=_monocular(dtype, d, **vit_kw),
@@ -97,18 +106,26 @@ def build_da3(name: str, dtype=torch.bfloat16, with_gs: Optional[bool] = None,
     elif key in PRESETS:
         cfg = dict(PRESETS[key])
         vit = cfg.pop("vit")
+        cfg["with_gs"] = cfg.get("with_gs", False) if with_gs is None else with_gs
         build = lambda d: _anyview(vit, dtype=dtype, device=d, **cfg, **vit_kw)
     else:
         raise KeyError(f"unknown DA3 preset {name!r}; known: {MODEL_REGISTRY}")
+    return materialize_(build(torch.device("meta")), dev, generator)
 
-    model = build(torch.device("meta"))
-    if dev.type == "meta":
+
+def materialize_(model: torch.nn.Module, device: torch.device, generator: Optional[torch.Generator] = None):
+    """A DA3 module built on the meta device -> its parameters on ``device``
+    with random weights from ``generator`` (default: seed 0 on ``device``),
+    in eval mode; on ``meta`` it stays shapes only. On CUDA this turns TF32
+    off for matmuls and cuDNN convolutions, so fp32 heads run in full fp32
+    as in the JAX package."""
+    if device.type == "meta":
         return model.eval()
-    if dev.type == "cuda":
+    if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model = model.to_empty(device=dev)
+    model = model.to_empty(device=device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        generator = torch.Generator(device=device).manual_seed(0)
     init_parameters_(model, generator)
     return model.eval()

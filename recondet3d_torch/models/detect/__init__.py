@@ -38,7 +38,8 @@ def build_resdet3d(preset: str = "da3nested-giant-large", dtype=torch.bfloat16, 
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     tuned = dict(param_dtype=torch.float32, remat=True) if not freeze_da3 else {}
-    da3 = build_da3(preset, dtype=dtype, device=dev, generator=generator, **tuned)
+    # the detector never calls the Gaussian-splat head, and the JAX package's ResDet3D has no parameters for it
+    da3 = build_da3(preset, dtype=dtype, device=dev, generator=generator, with_gs=False, **tuned)
     ref = None
     if refinement is not False:
         ref = SparseRefinement(dtype=dtype, device=dev, **(refinement or {}))

@@ -1,5 +1,5 @@
 """Pose encodings and quaternion <-> matrix conversions (port of
-``recondet3d/utils/transforms.py:26-123``). 9-D encoding: t(3), quat
+``recondet3d/utils/transforms.py:26-136``). 9-D encoding: t(3), quat
 xyzw(4), fov(2); scalar-last quaternions."""
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ __all__ = [
     "standardize_quaternion",
     "extri_intri_to_pose_encoding",
     "pose_encoding_to_extri_intri",
+    "cam_quat_xyzw_to_world_quat_wxyz",
 ]
 
 
@@ -111,3 +112,11 @@ def pose_encoding_to_extri_intri(pose_encoding, image_size_hw: Tuple[int, int]):
         dim=-2,
     )
     return extr, intr
+
+
+def cam_quat_xyzw_to_world_quat_wxyz(cam_quat_xyzw, c2w):
+    """Rotate camera-space quaternions (xyzw) into world space by the
+    camera-to-world rotations ``c2w[..., :3, :3]`` (broadcast); returns wxyz."""
+    rot_world = c2w[..., :3, :3] @ quat_to_mat(cam_quat_xyzw)
+    q_xyzw = mat_to_quat(rot_world)
+    return torch.cat([q_xyzw[..., 3:4], q_xyzw[..., 0:3]], dim=-1)

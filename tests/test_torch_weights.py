@@ -118,7 +118,7 @@ def test_full_scale_layout_matches_jax(name):
     for path, leaf in _flatten(abstract).items():
         jax_side[torch_name(path)] = torch_layout_shape(path, leaf.shape)
 
-    port = build_da3(name, device="meta")
+    port = build_da3(name, device="meta", with_gs=False)  # as the JAX side: the GS layout is in test_torch_gs.py
     port_side = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     unfilled = sorted(set(port_side) - set(jax_side))
     unused = sorted(set(jax_side) - set(port_side))
