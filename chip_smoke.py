@@ -33,19 +33,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6b. gt-pose the nested-giant-large net of phase 4 with GT poses (random w2c
             extrinsics and pinhole intrinsics from a seed), B=2 scenes x 6
             views x 900x1600: ``CameraEnc`` runs its four fp32 trunk blocks
-            (16 heads of 96) through the CUDA-core attention kernel, launches
-            counted per shape; once more with the camera encoder's attention
-            switched to the plain version: camera tokens and depth must
-            agree. Before it, the fp32 kernel against its plain version at
-            the camera encoders' shapes of da3-giant (D = 96) and da3-large
-            (D = 64), timed on the device (``torch.profiler``) and on the
-            host beside the plain version and SDPA on the same fp32 inputs,
-            and one da3-large ``CameraEnc`` (kernel vs plain).
+            (16 heads of 96) through the short forward kernel (four launches,
+            none of the tiled kernels), and a profiled forward of the camera
+            encoder shows no copy kernel inside its attention modules; once
+            more with the camera encoder's attention switched to the plain
+            version: camera tokens and depth must agree. Before it, the fp32
+            kernels (tiled and short) against their plain version at the
+            camera encoders' shapes of da3-giant (D = 96) and da3-large (D =
+            64), timed on the device (calls queued behind a spin kernel, CUDA
+            events) and on the host beside the plain version, SDPA on the same fp32 inputs and an
+            empty kernel launched the same way (the launch floor), and one
+            da3-large ``CameraEnc`` (kernel vs plain).
 6c. gt-pose-bwd ``build_da3("da3-large")`` unfrozen with GT poses, B=1 x 6
             views x 900x1600, one forward and a backward into every
-            parameter: CameraEnc's four blocks on the CUDA-core forward, dq
-            and dk/dv kernels, the 24 bf16 trunk blocks on the wgmma ones
-            (launches counted: 48 forward, 24 dq, 24 dk/dv); CameraEnc's
+            parameter: CameraEnc's four blocks on the short forward and fused
+            backward kernels (4 launches each, none of the tiled dq or dk/dv),
+            the 24 bf16 trunk blocks on the wgmma ones (launches counted: 48
+            forward, 24 dq, 24 dk/dv); CameraEnc's
             parameter gradients against a run with its attention on the
             plain version.
 7. fps      the furthest-point-sampling kernel vs its plain PyTorch
@@ -81,9 +85,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
             ``scaled_dot_product_attention`` (a yardstick only), the bound
             and the exponentials' floor.
 11b. cc      the CUDA-core attention family (``csrc/attn_cuda_core.cu``):
-            forward, dq and dk/dv against the plain versions in fp32 at the
-            camera encoders' shapes; same bits run to run; times beside the
-            bound, the plain versions and SDPA. Then bf16 at the head dims no
+            the tiled forward, dq and dk/dv against the plain versions in fp32
+            at the camera encoders' shapes; same bits run to run; times beside
+            the bound, the plain versions and SDPA. The short fp32 forward and
+            fused backward through ``flash_attention`` and autograd on the qkv
+            split's views at the camera encoders' shapes, N = M in {1, 6, 32}
+            x D in {24, 48, 64, 96, 256}, with ``kv_len`` and at scale 0.1:
+            the fp32 gates, one launch of each, the same bits run to run, the
+            (B, N, H, D) output; every case timed on the device (calls queued
+            behind a spin kernel) and in loops of calls beside the tiled
+            kernels, SDPA, the bound and the launch floor. Then bf16 at the
+            head dims no
             DA3 trunk has, (1, 4, N, D) at D in {32, 96, 128, 20} and N in
             {721, 4326}, D in {16, 48, 160, 192, 256} at 4,326, one case with
             ``kv_len`` and two at scale 0.1 (D = 128, 256), through
@@ -94,7 +106,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
             the exp floor, the plain versions, SDPA forward and backward and
             the CUDA-core kernels the wgmma kernels replace. Then B*H = 65,552
             > 65,535 for the wgmma kernels (bf16 D=64), the wgmma kernels at
-            D = 128 and the CUDA-core family (fp32).
+            D = 128, the tiled CUDA-core family and the short kernels (fp32).
 12. finetune ``Trainer`` with ``frozen_patterns=()`` on
             ``build_resdet3d("da3-large", freeze_da3=False)``: fp32 master
             parameters, bf16 compute, every ViT block under checkpointing
@@ -130,7 +142,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
             card from the JAX test's initial weights (``tests/jax_init.py``,
             a step-0 checkpoint the CLI resumes from), ``cli.test`` on its
             checkpoint; tests/test_full_loop.py's
-            gates (normalised loss, per-class AP, mAP, NDS); ms per step
+            gates (normalised loss, per-class AP, mAP, NDS); the fixture's
+            images as the port's loader resizes them against cv2.resize, as
+            the JAX loader does, byte for byte (printed; fails where they
+            differ; skipped without cv2); ms per step
             (median, p90), the share of a step spent waiting on the data
             iterator, eval ms per sample; flash-forward and FPS launches
             counted and held to the shapes checked against the plain versions
@@ -153,7 +168,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
             846,720 Gaussians, every file read back, flash launches per
             shape; (b) the same call on the plain attention: the last ViT-g
             features and the raw Gaussians to the in-situ gate, depth reported; (c) with GT poses: extrinsics
-            aligned, 4 fp32 camera-encoder launches, and with ``align_to_input_ext_scale=False`` the poses one
+            aligned, 4 launches of the short fp32 forward and none of the tiled one, and with
+            ``align_to_input_ext_scale=False`` the poses one
             similarity of the input whose scale (c)'s depth was divided by; (d) ``use_ray_pose``;
             (e) ``python -m recondet3d_torch.cli.da3 images`` and ``colmap``
             in subprocesses; (f) 32 views (the CLI's ``--max-frames``) at
@@ -173,11 +189,13 @@ FPS cases, the dq and dk/dv kernels at the fine-tuning shapes, the flash
 forward at the request's shapes, bf16 attention at D in {32, 96, 128, 20}
 and {160, 256} (forward, dq and dk/dv on the kernels each tree routes them
 to), the fp32
-attention forward at the camera encoders' shapes (device time) and five
+attention forward and backward at the camera encoders' shapes on each tree's
+own route (device and host time) and five
 main-path requests, timed by ``recondet3d_torch/tools/kernel_times.py`` in
 four processes, the earlier tree's and this tree's in turns (parent, change,
-change, parent); it fails unless ptxas gives the D = 64 instances the
-parent's registers.
+change, parent), with the change's median request against the parent's
+quartiles; it fails unless ptxas gives the D = 64 instances the parent's
+registers.
 
 Needs CUDA; exits non-zero without it (or without the rest of the repo).
 """
@@ -214,7 +232,7 @@ from recondet3d_torch.cli import test as cli_test
 from recondet3d_torch.cli import train as cli_train
 from recondet3d_torch.cli.train import build_model_from_cfg
 from recondet3d_torch.core.config import load_py_config
-from recondet3d_torch.data.image_io import imread_rgb, write_png, write_ppm
+from recondet3d_torch.data.image_io import imread_rgb, resize_bilinear, write_png, write_ppm
 from recondet3d_torch.data.pipelines.point_pipeline import (ball_query_downsample, filter_point_by_range,
                                                             voxel_pre_reduce)
 from recondet3d_torch.models.da3 import CameraEnc, build_da3
@@ -224,11 +242,14 @@ from recondet3d_torch.models.da3.layers import init_parameters_, set_attn_impl
 from recondet3d_torch.models.detect import build_resdet3d
 from recondet3d_torch.ops import fps as fps_ops
 from recondet3d_torch.models.detect import ReconstructionBackbone, ResDet3D
+from recondet3d_torch.ops import attention as port_attention
 from recondet3d_torch.ops.attention import (
     attention_bwd_dkv_cuda_core,
     attention_bwd_dq_cuda_core,
     attention_bwd_plain,
+    attention_bwd_short,
     attention_fwd_cuda_core,
+    attention_fwd_short,
     attention_plain,
     flash_attention,
     flash_attention_bwd,
@@ -330,13 +351,27 @@ ANY_D_CASES.update({"bf16_d96_n4326_kv_len": ((2, 4, S * 721, 96), [2911, S * 72
                     "bf16_d256_n4326_scale_0.1": ((1, 4, S * 721, 256), None, 0.1)})
 # the kernel table's rows: (1, 4, 4326, 128), and (1, 4, 4326, 256) for dk/dv past D = 128
 ANY_D_HEADLINE, ANY_D_HEADLINE_WIDE = "bf16_d128_n4326", "bf16_d256_n4326"
-# B*H = 65,552 > 65,535 (the most grid.y takes): the wgmma kernels at D = 64, the wgmma forward and dk/dv at D = 128,
-# the CUDA-core family in fp32
-MANY_HEADS = {"bf16_d64": (4097, 16, 64, 64), "bf16_d128": (4097, 16, 64, 128), "f32_d24": (4097, 16, S, 24)}
-# the kernel wrappers of each kind on each route
+# B*H = 65,552 > 65,535 (the most grid.y takes): (shape, dtype, route) of the wgmma kernels at D = 64, the wgmma
+# forward and dk/dv at D = 128, the tiled CUDA-core family and the short fp32 kernels
+MANY_HEADS = {"bf16_d64": ((4097, 16, 64, 64), torch.bfloat16, "wgmma"),
+              "bf16_d128": ((4097, 16, 64, 128), torch.bfloat16, "wgmma"),
+              "f32_d24": ((4097, 16, S, 24), torch.float32, "cuda_core"),
+              "f32_d24_short": ((4097, 16, S, 24), torch.float32, "short")}
+# the kernel wrappers of each kind on each route (the short route's dq and dk/dv are one launch)
 WRAPPER = {("fwd", "wgmma"): flash_attention_fwd, ("dq", "wgmma"): flash_attention_bwd_dq,
            ("dkv", "wgmma"): flash_attention_bwd_dkv, ("fwd", "cuda_core"): attention_fwd_cuda_core,
-           ("dq", "cuda_core"): attention_bwd_dq_cuda_core, ("dkv", "cuda_core"): attention_bwd_dkv_cuda_core}
+           ("dq", "cuda_core"): attention_bwd_dq_cuda_core, ("dkv", "cuda_core"): attention_bwd_dkv_cuda_core,
+           ("fwd", "short"): attention_fwd_short, ("dq", "short"): attention_bwd_short,
+           ("dkv", "short"): attention_bwd_short}
+# phase 11b, the short fp32 kernels (N, M <= 32): (B, H, N, D), kv_len, scale. The camera encoders' shapes (B=2 GT-pose
+# forward, the B=1 backward, the B=1 API call), N = M in {1, 6, 32} x D in {24, 48, 64, 96, 256}, kv_len, scale 0.1
+SHORT_CASES = {"cam_enc_giant": ((B, 16, S, 96), None, None), "cam_enc_large_b1": ((1, 16, S, 64), None, None),
+               "cam_enc_giant_b1": ((1, 16, S, 96), None, None)}
+SHORT_CASES.update({f"short_n{n}_d{d}": ((B, 16, n, d), None, None) for n in (1, S, 32) for d in (24, 48, 64, 96, 256)})
+SHORT_CASES.update({"cam_enc_giant_kv_len": ((B, 16, S, 96), [3, S], None),
+                    "cam_enc_giant_scale_0.1": ((B, 16, S, 96), None, 0.1)})
+SHORT_CALLS = 20  # calls of a function in phase 11b's profiled sessions and in each loop that times host time
+SPIN_TRIES = 3  # device_ms: runs of a function, each with a 4x longer spin, before it fails
 # The GT-pose backward: CameraEnc's parameter gradients with its attention on the kernels vs on the plain version,
 # everything else the same. The two differ by fp32 rounding (~1e-7) in the camera tokens, which then pass 24 bf16
 # ViT-L blocks forward and back, where one flipped bf16 rounding moves a value by ~4e-3: the in-situ feature
@@ -620,57 +655,106 @@ def f32_bound_ms(shape):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def short_bounds(shape, kv_len):
+    """Least times of the short forward and backward over (B, H, N, D)
+    queries and N keys, of which kv_len[b] count: the larger of the fp32
+    operations over the fp32 rate (forward 4 N M D a head, backward 10 N M D:
+    S, dP, dq, dk and dv, with M the keys that count) and the bytes each
+    moves once over the memory rate (forward: q, the keys and values that
+    count, out, lse; backward: q, O, dO, lse and those keys and values read,
+    dq, dk and dv written). Returns {"fwd": (ms, by), "bwd": (ms, by)}."""
+    Bq, H, N, D = shape
+    rows = Bq * N if kv_len is None else sum(min(int(x), N) for x in kv_len)  # keys that count, over the batch
+    work = dict(fwd=(4.0 * H * N * D * rows, 4.0 * H * (2 * Bq * N * D + 2 * rows * D + Bq * N)),
+                bwd=(10.0 * H * N * D * rows, 4.0 * H * (3 * Bq * N * D + Bq * N + 2 * rows * D + 3 * Bq * N * D)))
+    out = {}
+    for kind, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        out[kind] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def launch_floor():
+    """A call that launches ``csrc/attn_cuda_core.cu``'s empty kernel as the
+    attention wrappers launch theirs (ctypes, PyTorch's current raw stream):
+    the yardstick a launch-bound kernel is read against."""
+    import ctypes
+
+    fn = load_kernels()["attn_cuda_core"].attn_cc_empty
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    current, raw_stream = port_attention._cuda_hooks()
+
+    def call():
+        err = fn(raw_stream(current()))
+        if err:
+            fail(f"the empty kernel's launch failed: cudaError {err}")
+    return call
+
+
+def qkv_split(q, k, v):
+    """q, k and v as ``layers.Attention`` hands them to the attention: views
+    of one (B, N, 3, H, D) projection output, holding these values."""
+    qkv = torch.stack([q, k, v], 0).permute(1, 3, 0, 2, 4).contiguous()
+    return qkv.permute(2, 0, 3, 1, 4).unbind(0)
+
+
 def device_ms(fns, calls):
     """Device time of one call of each function in ``fns`` ({label:
-    function}) and, per label, the device time a call of each device event
-    name it ran ({label: {name: ms}}), from one ``torch.profiler`` session.
-    Each label's calls run in a range of that name and end in a
-    synchronize, and 2 ms pass between ranges; a device
-    event counts to the range whose stretch holds it, the stretches split
-    in the middle of those pauses, so an offset of up to 1 ms between the
-    host's and the device's clocks does not move an event. The host's time
-    between launches does not count."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
-
-    for fn in fns.values():
+    function}): ``calls`` calls queued behind a spin kernel
+    (``torch.cuda._sleep``) long enough that the host has queued them all
+    before the device reaches them, timed by CUDA events around them. That
+    is each call's device work and the device's own gap between one launch
+    and the next, and none of the host's time between launches (these calls
+    are launch-bound: a loop of them without the spin times the host). A
+    run whose queueing took more than half the spin is run again with a
+    longer spin. The launches of ``calls`` calls must fit the queue of
+    pending launches, or the host waits on it (100 calls of the plain
+    version did not). (``torch.profiler`` on the card lost device events
+    once a process had run many sessions, and placed events a range away
+    from their own when they were split between ranges by the host's
+    clock.)"""
+    out = {}
+    for label, fn in fns.items():
         fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for label, fn in fns.items():
-            time.sleep(2e-3)
-            with record_function(label):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    cuda = torch.autograd.DeviceType.CUDA
-    # the ranges on the host's timeline (a range's annotation on the device timeline has its name too)
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                    if e.name in fns and e.device_type != cuda)
-    if [name for _, _, name in ranges] != list(fns):
-        fail(f"torch.profiler: ranges {ranges}, expected one of each of {list(fns)}")
-    splits = [(prev[1] + cur[0]) / 2 for prev, cur in zip(ranges, ranges[1:])]
-    by_name = {label: defaultdict(float) for label in fns}
-    for e in events:
-        if e.device_type != cuda or e.name in fns:
-            continue
-        owner = ranges[sum(t <= e.time_range.start for t in splits)][2]
-        by_name[owner][e.name] += e.device_time_total / 1e3 / calls
-    total = {label: sum(v.values()) for label, v in by_name.items()}
-    if not all(v > 0 for v in total.values()):
-        fail(f"torch.profiler recorded no device time for {total}")
-    return total, {label: dict(v) for label, v in by_name.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spin_s = 2 * calls * (time.perf_counter() - t0) + 1e-3
+        for _ in range(SPIN_TRIES):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_s * max_sm_clock_hz()))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            queued_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if queued_s < 0.5 * spin_s:
+                out[label] = start.elapsed_time(end) / calls
+                break
+            spin_s *= 4
+        else:
+            fail(f"device time of {label}: the host queued {calls} calls in {queued_s} s, past half the spin "
+                 f"({spin_s / 4} s) in {SPIN_TRIES} tries")
+    return out
 
 
 def f32_case(name, shape, seed, iters=100):
-    """The fp32 (CUDA-core) attention forward against ``attention_plain``
-    (fp32) on one set of fp32 inputs. At these shapes a call is launch-bound:
-    ``ms``, ``dq_ms`` and ``dkv_ms`` (the backward kernels on the same
-    inputs), ``plain_ms`` and ``library_ms`` (the forward of SDPA on the same
-    fp32 inputs), ``plain_bwd_ms`` (``attention_bwd_plain``) and
+    """The fp32 attention forwards (the tiled CUDA-core kernel and the short
+    one on the qkv split's views) against ``attention_plain`` (fp32) on one
+    set of fp32 inputs. At these shapes a call is launch-bound: ``ms``,
+    ``dq_ms`` and ``dkv_ms`` (the tiled kernels), ``tiled_bwd_ms`` (the
+    tiled backward's call: delta's expression and both kernels),
+    ``short_ms`` and ``short_bwd_ms`` (the short forward and fused
+    backward), ``floor_ms`` (an empty kernel launched the same way: the
+    launch floor), ``plain_ms`` and ``library_ms`` (the forward of SDPA on
+    the same fp32 inputs), ``plain_bwd_ms`` (``attention_bwd_plain``) and
     ``library_bwd_ms`` (SDPA's backward alone: dq, dk and dv) are device
-    time from one profiler session; the ``*host_ms`` keys are the time a
-    call takes in a loop of ``iters`` calls."""
+    time (``device_ms``); the ``*host_ms`` keys are the time a call takes in
+    a loop of ``iters`` calls."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
     out, lse = attention_fwd_cuda_core(q, k, v)
@@ -682,30 +766,44 @@ def f32_case(name, shape, seed, iters=100):
     delta = (do * out).sum(dim=-1)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(ql, kl, vl)
+    # the short kernels on the views the qkv split hands over, the gradient as the output projection returns it
+    qs, ks, vs = qkv_split(q, k, v)
+    so, slse = attention_fwd_short(qs, ks, vs)
+    sdo = do.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def tiled_bwd():  # the tiled route's backward call: delta's expression, then its two kernels
+        d = (do * out).sum(dim=-1)
+        return attention_bwd_dq_cuda_core(q, k, v, do, lse, d), attention_bwd_dkv_cuda_core(q, k, v, do, lse, d)
+
     calls = {"ms": lambda: attention_fwd_cuda_core(q, k, v),
              "dq_ms": lambda: attention_bwd_dq_cuda_core(q, k, v, do, lse, delta),
              "dkv_ms": lambda: attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta),
+             "tiled_bwd_ms": tiled_bwd,
+             "short_ms": lambda: attention_fwd_short(qs, ks, vs),
+             "short_bwd_ms": lambda: attention_bwd_short(qs, ks, vs, so, slse, sdo),
+             "floor_ms": launch_floor(),
              "plain_ms": lambda: attention_plain(q, k, v),
              "library_ms": lambda: F.scaled_dot_product_attention(q, k, v),
              "plain_bwd_ms": lambda: attention_bwd_plain(q, k, v, out, lse, do),
              "library_bwd_ms": lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)}
-    times, by_name = device_ms(calls, iters)
-    # the kernel's own time is its event's, the whole call's (anything else the wrapper runs) under call_*
-    for key, kernel in (("ms", "cc_fwd_kernel"), ("dq_ms", "cc_bwd_dq_kernel"), ("dkv_ms", "cc_bwd_dkv_kernel")):
-        times[f"call_{key}"] = times[key]
-        times[key] = sum(v for n, v in by_name[key].items() if kernel in n)
-        if not times[key] > 0:
-            fail(f"{name}: no device event of {kernel} in its range: {by_name[key]}")
+    times = device_ms(calls, SHORT_CALLS)  # a queue of 100 calls of the plain version fills the launch queue
     for key, fn in calls.items():
         times[key.replace("ms", "host_ms")] = time_ms(fn, iters)
     del o_lib
+    short_rel, short_lse = rel_l2(so, ref_out), (slse - ref_lse).abs().max().item()
+    ok = ok and short_rel <= F32_REL_TOL and short_lse <= F32_LSE_TOL
+    sb = short_bounds(shape, None)
     res = dict(name=name, shape=list(shape), max_abs_err=err, rel_l2_err=rel, max_abs_err_lse=err_lse,
+               short_max_abs_err=(so - ref_out).abs().max().item(), short_rel_l2_err=short_rel,
+               short_max_abs_err_lse=short_lse, short_bound_ms={k: b[0] for k, b in sb.items()},
+               short_bound_by={k: b[1] for k, b in sb.items()},
                library_rel_l2=rel_l2(F.scaled_dot_product_attention(q, k, v), ref_out),
-               tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL), **times, device_ms_by_event=by_name,
+               tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL), **times,
                bound_ms=b_ms, bound_by=b_by, ok=ok)
     emit("f32_kernel", **res)
     if not ok:
-        fail(f"fp32 attention kernel disagrees with the plain version at {name}: rel L2 {rel}, lse {err_lse}")
+        fail(f"fp32 attention kernels disagree with the plain version at {name}: tiled rel L2 {rel}, lse {err_lse}; "
+             f"short rel L2 {short_rel}, lse {short_lse}")
     return res
 
 
@@ -727,6 +825,51 @@ def gt_poses(batch, views, seed, h, w):
     return torch.from_numpy(ext).cuda(), torch.from_numpy(ixt).cuda()
 
 
+def cam_attention_kernels(enc, forward):
+    """{device kernel: launches} inside the attention modules of the camera
+    encoder's trunk during one profiled ``forward()``: each module's forward
+    runs in a ``record_function`` range, and a kernel counts to a range when
+    the host call that launched it (an operator or a runtime launch) runs
+    inside it. The qkv split, the attention and the output projection's
+    reshape launch no copy when the short kernels read and write their
+    layouts."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    mods = [blk.attn for blk in enc.trunk]
+
+    def ranged(mod):
+        inner = mod.forward
+
+        def fwd(*a, **kw):
+            with record_function("cam_attention"):
+                return inner(*a, **kw)
+        return fwd
+
+    forward()
+    torch.cuda.synchronize()
+    try:
+        for m in mods:
+            m.forward = ranged(m)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            forward()
+            torch.cuda.synchronize()
+    finally:
+        for m in mods:
+            del m.forward
+    counts = defaultdict(int)
+
+    def walk(e):
+        for kern in e.kernels:
+            counts[kern.name] += 1
+        for child in e.cpu_children:
+            walk(child)
+
+    for e in prof.events():
+        if e.name == "cam_attention" and e.device_type != torch.autograd.DeviceType.CUDA:
+            walk(e)
+    return dict(counts)
+
+
 def gt_pose_phase(model):
     """GT-pose conditioning through the nested net (B=2 x 6 views): the
     camera encoder's fp32 trunk attention on the kernel, counted per shape,
@@ -744,7 +887,10 @@ def gt_pose_phase(model):
         got = model(x, **kw)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        launches = dict(attention_fwd_cuda_core.launches_by_shape)
+        launches = dict(attention_fwd_short.launches_by_shape)
+        others = {w.__name__: w.launches for w in (attention_fwd_cuda_core, attention_bwd_short,
+                                                   attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core)}
+        around = cam_attention_kernels(enc, lambda: enc(ext, ixt, (x.shape[2], x.shape[3])))
         tok = enc(ext, ixt, (x.shape[2], x.shape[3]))
         set_attn_impl(enc, "plain")
         ref = model(x, **kw)
@@ -753,6 +899,7 @@ def gt_pose_phase(model):
         no_poses = model(x, use_ray_pose=False, ref_view_strategy="saddle_balanced")
     res = dict(scenes=B, views=S, image=[IMG_H, IMG_W], ms=ms, f32_launches_by_shape={str(k): n for k, n in
                                                                                         launches.items()},
+               other_fp32_launches=others, cam_attention_kernels=around,
                cam_token_rel_l2=rel_l2(tok, tok_ref), depth_rel_l2=rel_l2(got["depth"], ref["depth"]),
                extrinsics_rel_l2=rel_l2(got["extrinsics"], ref["extrinsics"]),
                depth_rel_l2_vs_no_poses=rel_l2(got["depth"], no_poses["depth"]),
@@ -760,8 +907,11 @@ def gt_pose_phase(model):
                depth_finite=bool(torch.isfinite(got["depth"]).all()), depth_mean=got["depth"].mean().item())
     emit("gt_pose", **res)
     expected = {(B, 16, S, S, 96): CAM_BLOCKS}
-    if launches != expected:
-        fail(f"gt-pose: fp32 launches {launches}, expected {expected}")
+    if launches != expected or any(others.values()):
+        fail(f"gt-pose: short fp32 forward launches {launches}, expected {expected}; others {others} (expected 0)")
+    copies = {n: c for n, c in around.items() if "copy" in n.lower()}
+    if copies or not any("cc_short_fwd_kernel" in n for n in around):
+        fail(f"gt-pose: kernels inside CameraEnc's attention modules {around}: a copy ({copies}) or no short kernel")
     if tuple(got["depth"].shape) != (B, S, 280, 504) or not res["depth_finite"]:
         fail(f"gt-pose: depth of shape {tuple(got['depth'].shape)} or non-finite")
     if not res["depth_rel_l2_vs_no_poses"] > 0:
@@ -826,8 +976,9 @@ def cc_gate(got, ref, dtype, scale=None):
 
 
 def cc_case(name, shape, seed, iters=10):
-    """The CUDA-core forward, dq and dk/dv kernels in fp32 against
-    ``attention_plain`` and ``attention_bwd_plain`` on one set of inputs;
+    """The tiled CUDA-core forward, dq and dk/dv kernels in fp32 against
+    ``attention_plain`` and ``attention_bwd_plain`` on one set of inputs
+    (called by name: fp32 at these lengths is routed to the short kernels);
     same bits run to run; times of each kernel in a loop of launches, the
     plain versions and SDPA (forward, and its backward alone); device times
     at the launch-bound camera-encoder shapes are ``f32_case``'s."""
@@ -835,15 +986,21 @@ def cc_case(name, shape, seed, iters=10):
     dtype = torch.float32
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
-    if any(kernel_variant(dtype, D, kind) != "cuda_core" for kind in KERNELS):
-        fail(f"{name}: fp32 D={D} is not routed to the CUDA-core family")
+    if any(kernel_variant(dtype, D, kind, N, N) != "short" or kernel_variant(dtype, D, kind, 33, N) != "cuda_core"
+           for kind in KERNELS):
+        fail(f"{name}: fp32 D={D} is not routed to the short kernels at {N} rows and the tiled ones past 32")
+    def tiled_bwd(out, lse):  # fp32 at these lengths is routed to the short kernels: the tiled ones by name
+        delta = (do * out).sum(dim=-1)
+        dk, dv = attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta)
+        return attention_bwd_dq_cuda_core(q, k, v, do, lse, delta), dk, dv
+
     reset_launch_counts()
     out, lse = attention_fwd_cuda_core(q, k, v)
-    got = flash_attention_bwd(q, k, v, out, lse, do)
+    got = tiled_bwd(out, lse)
     launched = (attention_fwd_cuda_core.launches, attention_bwd_dq_cuda_core.launches,
                 attention_bwd_dkv_cuda_core.launches, flash_attention_bwd_dq.launches)
     out2, lse2 = attention_fwd_cuda_core(q, k, v)
-    again = flash_attention_bwd(q, k, v, out, lse, do)
+    again = tiled_bwd(out, lse)
     torch.cuda.synchronize()
     same_bits = torch.equal(out, out2) and torch.equal(lse, lse2) and all(torch.equal(a, b) for a, b in zip(got, again))
     ref_out, ref_lse = attention_plain(q, k, v)
@@ -884,6 +1041,94 @@ def cc_case(name, shape, seed, iters=10):
         fail(f"CUDA-core attention kernels disagree with the plain versions at {name}: out rel {rel_out} "
              f"(abs {err_out}, lse {err_lse}), {errs}; same bits {same_bits}; launches {launched}")
     return res
+
+
+def short_case(name, shape, kv_len, scale, seed):
+    """The short fp32 forward and fused backward through ``flash_attention``
+    and autograd on the qkv split's views, as ``CameraEnc`` calls them: one
+    launch of each and none of another kernel, against ``attention_plain``
+    and ``attention_bwd_plain`` (fp32 gates; the backward against the
+    call's largest gradient norm), the same bits run to run, the output in
+    the (B, N, H, D) layout. Returns the result and the functions phase
+    11b times on these inputs: the short forward and backward, the tiled
+    forward, dq and dk/dv, SDPA's forward and its backward alone."""
+    Bq, H, N, D = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    views = qkv_split(q, k, v)
+    sdo = do.transpose(1, 2).contiguous().transpose(1, 2)  # as the output projection's gradient arrives
+    routes = {kind: kernel_variant(torch.float32, D, kind, N, N) for kind in KERNELS}
+    reset_launch_counts()
+    leaves = [t.detach().clone().requires_grad_() for t in views]
+    out = flash_attention(*leaves, kv_len=kvl, scale=scale)
+    got = torch.autograd.grad(out, leaves, sdo)
+    launched = {w.__name__: w.launches for w in port_attention._KERNEL_WRAPPERS}
+    out2 = flash_attention(*leaves, kv_len=kvl, scale=scale)
+    again = torch.autograd.grad(out2, leaves, sdo)
+    torch.cuda.synchronize()
+    same_bits = torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    want = {w.__name__: int(w in (attention_fwd_short, attention_bwd_short)) for w in port_attention._KERNEL_WRAPPERS}
+    out = out.detach()
+    _, lse = attention_fwd_short(*views, kvl, scale)
+    ref_out, ref_lse = attention_plain(q, k, v, kvl, scale)
+    ok_out, rel_out, err_out = cc_gate(out, ref_out, torch.float32)
+    err_lse = (lse - ref_lse).abs().max().item()
+    ref = attention_bwd_plain(q, k, v, out, lse, do, kvl, scale)
+    gscale = max(torch.linalg.norm(r) for r in ref)
+    errs = {}
+    for key, a, r in zip(("dq", "dk", "dv"), got, ref):
+        ok, rl, mx = cc_gate(a, r, torch.float32, scale=gscale)
+        errs[key] = dict(rel_l2=rl, max_abs=mx, ok=ok and bool(torch.isfinite(a).all()))
+    layout = out.transpose(1, 2).is_contiguous()
+    ok = (ok_out and err_lse <= F32_LSE_TOL and all(e["ok"] for e in errs.values()) and same_bits and layout
+          and launched == want and all(r == "short" for r in routes.values()))
+    res = dict(name=name, shape=list(shape), kv_len=kv_len, scale=scale, routes=routes,
+               max_abs_err=max([err_out] + [e["max_abs"] for e in errs.values()]), rel_l2_err_out=rel_out,
+               max_abs_err_lse=err_lse, errors=errs, same_bits_run_to_run=same_bits, out_layout_bnhd=layout,
+               launches=launched, tol=dict(rel_l2=F32_REL_TOL, lse=F32_LSE_TOL), ok=ok)
+    if not ok:
+        emit("short_kernel", **res)
+        fail(f"short fp32 attention kernels disagree with the plain versions at {name}: out rel {rel_out}, lse "
+             f"{err_lse}, {errs}; same bits {same_bits}; (B, N, H, D) output {layout}; launches {launched}, expected "
+             f"{want}; routes {routes}")
+    so = attention_fwd_short(*views, kvl, scale)[0]
+    delta = (do * out).sum(dim=-1)
+    mask = None if kvl is None else (torch.arange(N, device="cuda")[None, :] < kvl[:, None])[:, None, None, :]
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask, scale=scale)
+    calls = {"fwd": lambda: attention_fwd_short(*views, kvl, scale),
+             "bwd": lambda: attention_bwd_short(*views, so, lse, sdo, kvl, scale),
+             "tiled_fwd": lambda: attention_fwd_cuda_core(q, k, v, kvl, scale),
+             "tiled_dq": lambda: attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, kvl, scale),
+             "tiled_dkv": lambda: attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, kvl, scale),
+             "sdpa_fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+             "sdpa_bwd": lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)}
+    return res, calls
+
+
+def short_phase():
+    """Phase 11b, the short fp32 kernels: ``short_case`` at SHORT_CASES, each
+    case's functions and the launch floor (an empty kernel launched the same
+    way) timed on the device (``device_ms``) and in loops of calls (host
+    time), beside the bound."""
+    results, floors = {}, []
+    floor = launch_floor()
+    for i, (name, (shape, kv_len, scale)) in enumerate(SHORT_CASES.items()):
+        res, calls = short_case(name, shape, kv_len, scale, seed=110 + i)
+        times = device_ms(dict(calls, floor=floor), SHORT_CALLS)
+        floors.append(times["floor"])
+        res.update(ms={key: times[key] for key in calls}, floor_ms=times["floor"],
+                   host_ms={key: time_ms(fn, SHORT_CALLS) for key, fn in calls.items()},
+                   floor_host_ms=time_ms(floor, SHORT_CALLS))
+        bounds = short_bounds(shape, kv_len)
+        res.update(bound_ms={k: b[0] for k, b in bounds.items()}, bound_by={k: b[1] for k, b in bounds.items()},
+                   library_ms=dict(fwd=res["ms"]["sdpa_fwd"], bwd=res["ms"]["sdpa_bwd"]))
+        emit("short_kernel", **res)
+        results[name] = res
+    floor_res = dict(ms=float(np.median(floors)), ms_each_case=floors, host_ms=time_ms(floor, SHORT_CALLS))
+    emit("launch_floor", **floor_res)
+    return results, floor_res
 
 
 def any_d_case(name, shape, kv_len, scale, seed, iters=5):
@@ -990,21 +1235,29 @@ def head_rel_l2(got, ref, scale=None):
     return (err / den).max().item()
 
 
-def many_heads_case(name, shape, dtype, seed):
-    """B*H = 65,552: the forward and both backward kernels that the dtype
-    and D route to, against the plain versions: the worst head's relative
-    L2 to the dtype's relative gate (the backward against the head's largest
-    gradient norm)."""
+def many_heads_case(name, shape, dtype, route, seed):
+    """B*H = 65,552: the forward and backward kernels of ``route`` against
+    the plain versions: the worst head's relative L2 to the dtype's relative
+    gate (the backward against the head's largest gradient norm)."""
     Bq, H, N, D = shape
     # 268 M values a tensor at D = 64: drawn on the card (numpy takes ~20 s for the four)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
-    routes = {kind: kernel_variant(dtype, D, kind) for kind in KERNELS}
-    kernels = [WRAPPER[kind, routes[kind]] for kind in KERNELS]
+    routes = {kind: route for kind in KERNELS}
+    if any(kernel_variant(dtype, D, kind, *((N, N) if route != "cuda_core" else ())) != route for kind in KERNELS):
+        fail(f"{name}: {dtype} at D={D}, {N} rows is not routed to {route}")
+    kernels = [WRAPPER[kind, route] for kind in KERNELS]
     fwd = kernels[0]
+
+    def bwd(out, lse):  # the tiled CUDA-core kernels by name (fp32 at 6 rows is routed to the short ones)
+        if route != "cuda_core":
+            return flash_attention_bwd(q, k, v, out, lse, do)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        return (kernels[1](q, k, v, do, lse, delta), *kernels[2](q, k, v, do, lse, delta))
+
     reset_launch_counts()
     out, lse = fwd(q, k, v)
-    got = flash_attention_bwd(q, k, v, out, lse, do)
+    got = bwd(out, lse)
     torch.cuda.synchronize()
     launched = [w.launches for w in kernels]
     if dtype == torch.float32:
@@ -1020,19 +1273,22 @@ def many_heads_case(name, shape, dtype, seed):
     errs = {key: dict(rel_l2=head_rel_l2(a, r, hscale), max_abs=(a.float() - r.float()).abs().max().item())
             for key, a, r in zip(("dq", "dk", "dv"), got, ref)}
     del ref, ref_out
-    delta = (do.float() * out.float()).sum(dim=-1)
-    ms = {kind: time_ms(fn, 5) for kind, fn in (
-        ("fwd", lambda: fwd(q, k, v)), ("bwd", lambda: flash_attention_bwd(q, k, v, out, lse, do)),
-        ("dkv", lambda: kernels[2](q, k, v, do, lse, delta)))}
-    # the table's bound (cc_bounds: 4 / 6 / 8 N M D a head at the inputs' peak, or the bytes) and SDPA on the same
-    # inputs, its forward and its backward alone (CUDA events around 5 calls: these calls are long enough that
-    # the events read device time)
+    ms = {"fwd": time_ms(lambda: fwd(q, k, v), 5), "bwd": time_ms(lambda: bwd(out, lse), 5)}
+    if route != "short":  # the dk/dv kernel alone (the short route's backward is one launch)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        ms["dkv"] = time_ms(lambda: kernels[2](q, k, v, do, lse, delta), 5)
+    # the table's bound (cc_bounds: 4 / 6 / 8 N M D a head at the inputs' peak, or the bytes; short_bounds for the
+    # fused backward) and SDPA on the same inputs, its forward and its backward alone (CUDA events around 5 calls:
+    # these calls are long enough that the events read device time)
     bounds = cc_bounds(shape, N, dtype)
+    if route == "short":
+        bounds = dict(short_bounds(shape, None), dq=bounds["dq"], dkv=bounds["dkv"])
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(ql, kl, vl)
     library_ms = dict(fwd=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5),
                       bwd=time_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True), 5))
     del ql, kl, vl, o_lib
+    # one launch of each kernel (the short backward's one launch is read under dq and dk/dv alike)
     ok = rel_out <= tol and all(e["rel_l2"] <= tol for e in errs.values()) and launched == [1, 1, 1]
     res = dict(name=name, shape=list(shape), heads=Bq * H, routes=routes, worst_head_rel_l2_out=rel_out,
                max_abs_err_out=err_out, errors=errs, tol=dict(worst_head_rel_l2=tol), launches=launched, ms=ms,
@@ -1050,8 +1306,8 @@ def gt_pose_backward_phase():
     900x1600 with GT poses from a seed, one forward and a backward into every
     parameter of a smooth scalar of the depth (``loss.backward()``, as a
     fine-tuning step takes it). CameraEnc's four fp32 trunk blocks run the
-    CUDA-core forward, dq and dk/dv kernels, the 24 bf16 ViT-L blocks the
-    wgmma ones (each block's forward twice under checkpointing); then the
+    short forward and fused backward kernels (none of the tiled CUDA-core
+    ones), the 24 bf16 ViT-L blocks the wgmma ones (each block's forward twice under checkpointing); then the
     camera encoder's attention on the plain version, all else the same:
     CameraEnc's parameter gradients must agree."""
     model = build_da3("da3-large", dtype=torch.bfloat16, device="cuda",
@@ -1077,8 +1333,8 @@ def gt_pose_backward_phase():
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     launches = {w.__name__: dict(w.launches_by_shape) for w in (
-        attention_fwd_cuda_core, attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core, flash_attention_fwd,
-        flash_attention_bwd_dq, flash_attention_bwd_dkv)}
+        attention_fwd_short, attention_bwd_short, attention_fwd_cuda_core, attention_bwd_dq_cuda_core,
+        attention_bwd_dkv_cuda_core, flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)}
     with_grad = sum(p.grad is not None for p in model.parameters())
     set_attn_impl(enc, "plain")
     loss_p, grads_p = run()
@@ -1087,8 +1343,8 @@ def gt_pose_backward_phase():
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
     blocks = len(model.backbone.pretrained.blocks)
     cam = (1, 16, S, S, 64)
-    expected = dict(attention_fwd_cuda_core={cam: CAM_BLOCKS}, attention_bwd_dq_cuda_core={cam: CAM_BLOCKS},
-                    attention_bwd_dkv_cuda_core={cam: CAM_BLOCKS})
+    expected = dict(attention_fwd_short={cam: CAM_BLOCKS}, attention_bwd_short={cam: CAM_BLOCKS},
+                    attention_fwd_cuda_core={}, attention_bwd_dq_cuda_core={}, attention_bwd_dkv_cuda_core={})
     counts = {k: sum(v.values()) for k, v in launches.items()}
     res = dict(preset="da3-large", scenes=1, views=S, image=[IMG_H, IMG_W], ms=ms, loss_kernels=loss_k,
                loss_plain=loss_p, cam_enc_grad_rel_l2_max=max(errs.values()), cam_enc_grad_rel_l2=errs,
@@ -1147,14 +1403,23 @@ def parent_comparison(parent, fps_cases):
     same_registers = {kernel: d64(registers["parent"], kernel) == d64(registers["change"], kernel)
                       for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
 
-    def ratio(key):
-        mean = {tree: np.mean([r[key] for r in runs if r["tree"] == tree]) for tree in ("parent", "change")}
+    def ratio(key, sub=None):
+        mean = {tree: np.mean([r[key] if sub is None else r[key][sub] for r in runs if r["tree"] == tree])
+                for tree in ("parent", "change")}
         return float(mean["change"] / mean["parent"])
 
+    # the main path's requests: the change's median against the parent's quartiles (both trees' processes pooled)
+    requests = {tree: [ms for r in runs if r["tree"] == tree for ms in r.get("request_ms", [])]
+                for tree in ("parent", "change")}
+    request_stats = {tree: dict(median=float(np.median(v)), quartiles=[float(np.percentile(v, 25)),
+                                                                       float(np.percentile(v, 75))])
+                     for tree, v in requests.items() if v}
     emit("parent_comparison", parent=os.path.abspath(parent), runs=runs, registers=registers,
          d64_same_registers=same_registers, fwd_request_mix_change_over_parent=ratio("fwd_request_mix_ms"),
          dq_step_mix_change_over_parent=ratio("dq_step_mix_ms"),
-         dkv_step_mix_change_over_parent=ratio("dkv_step_mix_ms"))
+         dkv_step_mix_change_over_parent=ratio("dkv_step_mix_ms"), requests=request_stats,
+         f32_change_over_parent={f"{kind}_{key}_{name}": ratio(f"f32_{kind}_{key}_ms", name)
+                                 for kind in ("fwd", "bwd") for key in ("device", "host") for name in CAM_SHAPES})
     if any(r["fps_indices_sum"] != runs[0]["fps_indices_sum"] for r in runs):
         fail("parent comparison: the two trees' FPS kernels chose different indices")
     if not all(same_registers.values()):
@@ -1753,6 +2018,24 @@ def write_loop_fixture(root, n_cams):
     return os.path.join(root, "loop_infos_train.pkl")
 
 
+def loader_images_identical(root, hw=(IMG_H, IMG_W)):
+    """The fixture's images as the two training loaders read them: the
+    port's ``resize_bilinear(imread_rgb(path))`` against the JAX package's
+    ``cv2.resize(cv2.imread(path)[..., ::-1], (W, H))``
+    (``recondet3d/cli/train.py``); None where cv2 does not import."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    samples = os.path.join(root, "samples")
+    paths = sorted(os.path.join(samples, cam, f) for cam in os.listdir(samples) if cam.startswith("CAM")
+                   for f in os.listdir(os.path.join(samples, cam)))
+    same = [np.array_equal(resize_bilinear(imread_rgb(p), hw), cv2.resize(cv2.imread(p)[..., ::-1], hw[::-1]))
+            for p in paths]
+    return dict(images=len(paths), source_hw=list(imread_rgb(paths[0]).shape[:2]), loader_hw=list(hw),
+                byte_identical=int(sum(same)), all_byte_identical=bool(paths) and all(same), cv2=cv2.__version__)
+
+
 def stage_counts(model):
     return {k: [int(c) for c in v] for k, v in model.reconstruction_backbone.last_stage_counts.items()}
 
@@ -1794,6 +2077,7 @@ def run_full_loop(phase, config, n_cams, steps, train_args, train_inner, profile
         ann = write_loop_fixture(os.path.join(tmp, "nusc"), n_cams)
         root = os.path.dirname(ann)
         fixture_s = time.perf_counter() - t0
+        loader_images = loader_images_identical(root)
         ov = ["--cfg-options", f"{train_inner}.ann_file={ann}", f"{train_inner}.data_root={root}",
               f"data.test.ann_file={ann}", f"data.test.data_root={root}"]
         wd = os.path.join(tmp, "work_dir")
@@ -1846,7 +2130,7 @@ def run_full_loop(phase, config, n_cams, steps, train_args, train_inner, profile
     return dict(config=config, views=n_cams, steps=steps, initial_weights=(
                     f"the JAX package's at seed {jax_seed} (tests/jax_init.py)" if jax_seed is not None
                     else "the port's from --seed 0"), resumed_at_step_0="at step 0" in train_out,
-                rc_train=rc, rc_test=rc_test, fixture_s=fixture_s,
+                rc_train=rc, rc_test=rc_test, fixture_s=fixture_s, loader_images=loader_images,
                 train_s=train_s, test_s=test_s, train_step=train_clock.stats(), eval_sample=test_clock.stats(skip=1),
                 profiled_step=train_clock.profile, checkpoint=os.path.basename(ckpt) if ckpt else None,
                 checkpoint_bytes=ckpt_bytes, save_s=timing["save_s"], load_s=timing["load_s"],
@@ -1916,6 +2200,11 @@ def full_loop_tiny_phase(exchange_us):
     ok, gates = loop_gates(res)
     res["gates"], res["gate_values"], res["gates_passed"] = LOOP_GATES, gates, ok
     emit("full_loop_tiny", **{k: v for k, v in res.items() if k != "logged"})
+    # the two packages' loaders hand the models the same bytes (cv2's INTER_LINEAR in the port's fixed point)
+    print(f"chip_smoke: full loop (tiny): the loaders' images, port vs cv2: {res['loader_images']}", flush=True)
+    if res["loader_images"] is not None and not res["loader_images"]["all_byte_identical"]:
+        fail(f"full loop (tiny): the port's loader resizes the fixture's images otherwise than cv2: "
+             f"{res['loader_images']}")
     if res["rc_train"] != 0 or res["rc_test"] != 0 or not res["resumed_at_step_0"]:
         fail(f"full loop (tiny): exit codes train {res['rc_train']} test {res['rc_test']}, resumed from the "
              f"initial checkpoint {res['resumed_at_step_0']}")
@@ -1955,24 +2244,31 @@ def full_loop_full_width_phase(fwd_case_of, fps_case_of):
 
 
 def f32_check(name, shape, seed, iters=50):
-    """The fp32 (CUDA-core) attention forward against ``attention_plain`` at
-    one more shape: rel L2 and lse gates; host time per call in a loop of
-    calls (launch-bound here), no profiler session."""
+    """The fp32 attention forward at one more shape: the short kernel (on the
+    qkv split's views, as the API's CameraEnc calls it) and the tiled one
+    against ``attention_plain``, rel L2 and lse gates; host time per call in
+    a loop of calls (launch-bound here) of both, the plain version, SDPA and
+    the launch floor, no profiler session (phase 11b times this shape on
+    the device)."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3))
-    out, lse = attention_fwd_cuda_core(q, k, v)
+    views = qkv_split(q, k, v)
     ref_out, ref_lse = attention_plain(q, k, v)
-    rel, err_lse = rel_l2(out, ref_out), (lse - ref_lse).abs().max().item()
+    errs = {}
+    for key, (out, lse) in (("short", attention_fwd_short(*views)), ("tiled", attention_fwd_cuda_core(q, k, v))):
+        errs[key] = dict(max_abs_err=(out - ref_out).abs().max().item(), rel_l2_err=rel_l2(out, ref_out),
+                         max_abs_err_lse=(lse - ref_lse).abs().max().item())
     b_ms, b_by = f32_bound_ms(shape)
-    res = dict(name=name, shape=list(shape), max_abs_err=(out - ref_out).abs().max().item(), rel_l2_err=rel,
-               max_abs_err_lse=err_lse, tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL),
-               host_ms=time_ms(lambda: attention_fwd_cuda_core(q, k, v), iters),
+    res = dict(name=name, shape=list(shape), max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
+               tol=dict(out_rel_l2=F32_REL_TOL, lse=F32_LSE_TOL),
+               host_ms=time_ms(lambda: attention_fwd_short(*views), iters),
+               tiled_host_ms=time_ms(lambda: attention_fwd_cuda_core(q, k, v), iters),
                plain_host_ms=time_ms(lambda: attention_plain(q, k, v), iters),
                library_host_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters),
-               bound_ms=b_ms, bound_by=b_by)
+               floor_host_ms=time_ms(launch_floor(), iters), bound_ms=b_ms, bound_by=b_by)
     emit("f32_kernel", **res)
-    if not (rel <= F32_REL_TOL and err_lse <= F32_LSE_TOL and bool(torch.isfinite(out).all())):
-        fail(f"fp32 attention kernel disagrees with the plain version at {name}: rel L2 {rel}, lse {err_lse}")
+    if not all(e["rel_l2_err"] <= F32_REL_TOL and e["max_abs_err_lse"] <= F32_LSE_TOL for e in errs.values()):
+        fail(f"fp32 attention kernels disagree with the plain version at {name}: {errs}")
     return res
 
 
@@ -2232,7 +2528,8 @@ def da3_api_phase(smi, fwd_case_of):
             t0 = time.perf_counter()
             posed = api.inference(imgs, extrinsics=ext, intrinsics=ixt, infer_gs=True)
             pose_ms = 1e3 * (time.perf_counter() - t0)
-            f32_launches = dict(attention_fwd_cuda_core.launches_by_shape)
+            f32_launches = dict(attention_fwd_short.launches_by_shape)
+            tiled = attention_fwd_cuda_core.launches
             pose_checks = check_prediction(posed, S, "(c)")
             align_err = float(np.abs(posed.extrinsics - ext[:, :3]).max())
             res["c"] = dict(ms=pose_ms, extrinsics_max_abs_err=align_err, tol=1e-5,
@@ -2241,8 +2538,9 @@ def da3_api_phase(smi, fwd_case_of):
             emit("da3_api_poses", **res["c"])
             if align_err > 1e-5:
                 fail(f"da3-api (c): extrinsics {align_err} from the input")
-            if f32_launches != {(1, 16, S, S, 96): CAM_BLOCKS}:
-                fail(f"da3-api (c): fp32 launches {f32_launches}, expected {CAM_BLOCKS} at (1, 16, {S}, {S}, 96)")
+            if f32_launches != {(1, 16, S, S, 96): CAM_BLOCKS} or tiled:
+                fail(f"da3-api (c): short fp32 launches {f32_launches}, expected {CAM_BLOCKS} at (1, 16, {S}, {S}, "
+                     f"96); tiled {tiled}, expected 0")
             # without align_to_input_ext_scale the API returns the input's poses moved by the Umeyama similarity into
             # the prediction's frame, and leaves the depth undivided: one similarity must map the input onto them
             # exactly, and its scale is what the depth above was divided by
@@ -2542,10 +2840,11 @@ def main(argv=None):
     # 11b. the CUDA-core attention family in fp32 at the camera encoders' shapes (forward and backward; launch-bound,
     # so device times too); bf16 at head dims no DA3 trunk has on the wgmma forward and dk/dv; then B*H > 65535
     cc_cam = {name: cc_case(name, shape, seed=60 + i, iters=50) for i, (name, shape) in enumerate(CAM_SHAPES.items())}
+    short_res, floor = short_phase()
     any_d = {name: any_d_case(name, shape, kv_len, scale, seed=70 + i)
              for i, (name, (shape, kv_len, scale)) in enumerate(ANY_D_CASES.items())}
-    many = {name: many_heads_case("many_heads_" + name, shape, torch.bfloat16 if name.startswith("bf16") else
-                                  torch.float32, seed=80 + i) for i, (name, shape) in enumerate(MANY_HEADS.items())}
+    many = {name: many_heads_case("many_heads_" + name, shape, dtype, route, seed=80 + i)
+            for i, (name, (shape, dtype, route)) in enumerate(MANY_HEADS.items())}
 
     # 4. the model of the main path
     t0 = time.perf_counter()
@@ -2918,50 +3217,101 @@ def main(argv=None):
                          launches_per_step=per_step[kind].get(tuple(c["shape"]), 0), **c[kind],
                          plain_ms=c["plain_ms"], library_ms=c["library_ms"], errors=c["errors"])
                     for c in list(bwd_cases.values()) + bwd_extra]))
-    # the CUDA-core family: the forward on the GT-pose forward's launches (nested-giant, B=2: CameraEnc at D=96),
-    # dq and dk/dv on the GT-pose backward's (da3-large, B=1: D=64); ms, plain_ms and library_ms are device time
-    # from torch.profiler at these launch-bound shapes, the host_* keys the time a call takes in a loop of launches
+    # the fp32 kernels, on the camera encoder's calls: the forward's on the GT-pose forward's launches (nested-giant,
+    # B=2: CameraEnc at D=96), the backward's on the GT-pose backward's (da3-large, B=1: D=64); ms, plain_ms and
+    # library_ms are device time (device_ms: calls queued behind a spin kernel) at these launch-bound shapes, the host_*
+    # keys the time a call takes in a loop of launches, floor_* an empty kernel launched the same way. The short
+    # kernels take these calls; the tiled ones, routed no more at these lengths, are timed on the same inputs over the
+    # same CAM_BLOCKS calls
+    giant, large = f32_cases["cam_enc_giant"], f32_cases["cam_enc_large_b1"]
+    short_err = max([c["max_abs_err"] for c in short_res.values()]
+                    + [c["short_max_abs_err"] for c in f32_cases.values()]
+                    + [many["f32_d24_short"]["max_abs_err_out"]] + [e["max_abs"] for e in
+                                                                     many["f32_d24_short"]["errors"].values()])
+    short_fwd_n, short_bwd_n = sum(f32_launches.values()), sum(pose_bwd_launches["attention_bwd_short"].values())
+    table["kernels"].append(dict(
+        name="attn_cc_short_fwd", route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
+        replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=short_fwd_n,
+        launches_gt_pose_backward=sum(pose_bwd_launches["attention_fwd_short"].values()),
+        max_abs_err=short_err,
+        **{key: giant[f"short_{key}"] * short_fwd_n for key in ("ms", "host_ms")},
+        **{key: giant[key] * short_fwd_n for key in ("plain_ms", "plain_host_ms", "library_ms", "library_host_ms",
+                                                     "floor_ms", "floor_host_ms")},
+        tiled_ms=giant["ms"] * short_fwd_n, tiled_host_ms=giant["host_ms"] * short_fwd_n,
+        bound_ms=giant["short_bound_ms"]["fwd"] * short_fwd_n, bound_by=giant["short_bound_by"]["fwd"],
+        per=f"one GT-pose forward of nested-giant-large (B=2: {short_fwd_n} launches at (2, 16, 6, 6) D=96)",
+        design="fp32 on the CUDA cores, N, M <= 32: one CTA a head (8 / N heads below 5 rows), every load of q, k, v "
+               "in flight at once (16 bytes a thread where D % 4 == 0) from any B, H, row strides; one warp a query "
+               "row, one key a lane, an exact softmax over shuffles, lane l accumulating columns l, l + 32, ...; the "
+               "output written as (B, N, H, D)",
+        note="tiled_*: the tiled cc_fwd_kernel on the same inputs over the same calls; floor_*: an empty kernel "
+             "launched the same way; library_ms: SDPA's forward on the same fp32 inputs; max_abs_err over every short "
+             "case of phases 6b, 11b and B*H = 65,552",
+        shapes=list(short_res.values()), gt_pose=pose_res, many_heads=[many["f32_d24_short"]]))
+    table["kernels"].append(dict(
+        name="attn_cc_short_bwd", route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
+        replaces="recondet3d/ops/attention.py:185", also_replaces="recondet3d/ops/attention.py:231",
+        status="ported+checked", launches=short_bwd_n, max_abs_err=short_err,
+        **{key: large[f"short_bwd_{key}"] * short_bwd_n for key in ("ms", "host_ms")},
+        **{key: large[f"{key.replace('_ms', '')}_bwd_ms"] * short_bwd_n for key in ("plain_ms", "library_ms")},
+        **{key: large[f"{key.replace('_host_ms', '')}_bwd_host_ms"] * short_bwd_n
+           for key in ("plain_host_ms", "library_host_ms")},
+        floor_ms=large["floor_ms"] * short_bwd_n, floor_host_ms=large["floor_host_ms"] * short_bwd_n,
+        tiled_ms=(large["dq_ms"] + large["dkv_ms"]) * short_bwd_n, tiled_call_ms=large["tiled_bwd_ms"] * short_bwd_n,
+        tiled_host_ms=large["tiled_bwd_host_ms"] * short_bwd_n,
+        bound_ms=large["short_bound_ms"]["bwd"] * short_bwd_n, bound_by=large["short_bound_by"]["bwd"],
+        per=f"one GT-pose backward of da3-large (B=1: {short_bwd_n} launches at (1, 16, 6, 6) D=64)",
+        design="fp32 on the CUDA cores, N, M <= 32: dq, dk and dv in one launch, one CTA a head (max(N, M) warps); "
+               "the head's q, k, v, O, dO and lse in shared memory; warp i forms row i of P and dS (delta_i = dO_i . "
+               "O_i in the kernel), then warp i sums dq_i and warp j dk_j and dv_j, one lane a column, in a fixed "
+               "order (no atomics: the same bits run to run)",
+        note="replaces the tiled dq and dk/dv kernels and delta's expression on this route; tiled_ms: their two "
+             "kernels, tiled_call_ms the whole tiled call (delta's expression included), on the same inputs over the "
+             "same calls; plain_ms: attention_bwd_plain; library_ms: SDPA's backward alone (dq, dk and dv)",
+        gt_pose_backward=pose_bwd, shapes=list(short_res.values()), many_heads=[many["f32_d24_short"]]))
     cc_err = max([c["max_abs_err"] for c in cc_cam.values()] + [many["f32_d24"]["max_abs_err_out"]]
                  + [e["max_abs"] for c in any_d.values() for e in c["cuda_core_errors"].values()])
     table["kernels"].append(dict(
         name="attn_cc_fwd", route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
-        replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=sum(f32_launches.values()),
+        replaces="recondet3d/ops/attention.py:54", status="ported+checked", launches=0,
         max_abs_err=max([cc_err] + [c["max_abs_err"] for c in f32_cases.values()]),
-        **{key: sum(f32_cases["cam_enc_giant"][key] * n for n in f32_launches.values())
+        **{key: giant[key] * CAM_BLOCKS
            for key in ("ms", "host_ms", "plain_ms", "plain_host_ms", "library_ms", "library_host_ms", "bound_ms")},
-        bound_by=f32_cases["cam_enc_giant"]["bound_by"],
-        per="one GT-pose forward of nested-giant-large (B=2: 4 launches at (2, 16, 6, 6) D=96)",
+        bound_by=giant["bound_by"],
+        per=f"the GT-pose forward's {CAM_BLOCKS} calls at (2, 16, 6, 6) D=96, which the short kernel takes",
         design="CUDA cores, templated on fp32 / bf16 and ceil(D/32) output columns a lane: one CTA per (b*h, 8 query "
                "rows), K/V tiles of 64 through shared memory, one warp per query row, online softmax with expf",
-        note="the _flash_kernel instances in fp32 (any D <= 256; bf16 goes to the wgmma forward, and this kernel's "
-             "bf16 instance is checked and timed beside it in the any-D rows); ms, plain_ms and library_ms (SDPA on "
-             "the same fp32 inputs) are device time from torch.profiler; max_abs_err is over every CUDA-core case, "
-             "bf16 ones included",
-        cam_enc_large_token_rel_l2=cam_large_err, gt_pose=pose_res, shapes=list(f32_cases.values()),
+        note="the _flash_kernel instances in fp32 past 32 rows (any D <= 256; no config builds them: launches 0 on "
+             "every path); bf16 goes to the wgmma forward, and this kernel's bf16 instance is checked and timed beside "
+             "it in the any-D rows; ms, plain_ms and library_ms (SDPA on the same fp32 inputs) are device time (calls "
+             "queued behind a spin kernel); max_abs_err is over every tiled CUDA-core case, bf16 ones included",
+        cam_enc_large_token_rel_l2=cam_large_err, shapes=list(f32_cases.values()),
         cc_cases=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"]["fwd"],
                        bound_ms=c["bound_ms"]["fwd"],
                        bound_by=c["bound_by"]["fwd"], library_ms=c["library_ms"]["fwd"])
                   for c in cc_cam.values()]))
-    cam, cam_dev = cc_cam["cam_enc_large_b1"], f32_cases["cam_enc_large_b1"]
+    cam, cam_dev = cc_cam["cam_enc_large_b1"], large
     for kind, fn_name, line in (("dq", "attn_cc_bwd_dq", 185), ("dkv", "attn_cc_bwd_dkv", 231)):
-        n = sum(pose_bwd_launches[f"attention_bwd_{kind}_cuda_core"].values())
+        n = CAM_BLOCKS
         table["kernels"].append(dict(
             name=fn_name, route="cuda", source="recondet3d_torch/csrc/attn_cuda_core.cu",
-            replaces=f"recondet3d/ops/attention.py:{line}", status="ported+checked", launches=n,
+            replaces=f"recondet3d/ops/attention.py:{line}", status="ported+checked",
+            launches=sum(pose_bwd_launches[f"attention_bwd_{kind}_cuda_core"].values()),
             max_abs_err=cc_err, ms=cam_dev[f"{kind}_ms"] * n, host_ms=cam_dev[f"{kind}_host_ms"] * n,
             plain_ms=cam_dev["plain_bwd_ms"] * n, plain_host_ms=cam_dev["plain_bwd_host_ms"] * n,
             bound_ms=cam["bound_ms"][kind] * n, bound_by=cam["bound_by"][kind],
             library_ms=cam_dev["library_bwd_ms"] * n, library_host_ms=cam_dev["library_bwd_host_ms"] * n,
-            per="one GT-pose backward of da3-large (B=1: 4 launches at (1, 16, 6, 6) D=64)",
+            per=f"the GT-pose backward's {n} calls at (1, 16, 6, 6) D=64, which the short fused kernel takes",
             design="CUDA cores, templated like the forward: one warp per " + ("query" if kind == "dq" else "key")
                    + " row, tiles of 32 " + ("keys" if kind == "dq" else "queries") + " through shared memory, "
                    "no atomics (the same bits run to run)",
-            note="ms, plain_ms (attention_bwd_plain) and library_ms (SDPA's backward alone) are device time from one "
-                 "torch.profiler session on the same fp32 inputs, the *host_ms keys the time a call takes in a loop "
+            note="ms, plain_ms (attention_bwd_plain) and library_ms (SDPA's backward alone) are device time (calls "
+                 "queued behind a spin kernel, CUDA events) on the same fp32 inputs, the *host_ms keys the time a "
+                 "call takes in a loop "
                  "of calls; plain_ms and library_ms compute dq, dk and dv together: the same numbers stand in both "
-                 "rows; max_abs_err is over every CUDA-core case; bf16 is routed to the wgmma kernels, and this "
-                 "kernel's bf16 instance is checked and timed beside them in the any-D rows (cuda_core_ms)",
-            gt_pose_backward=pose_bwd,
+                 "rows; max_abs_err is over every tiled CUDA-core case; fp32 at N, M <= 32 goes to the short fused "
+                 "kernel, bf16 to the wgmma kernels, and this kernel's bf16 instance is checked and timed beside them "
+                 "in the any-D rows (cuda_core_ms)",
             shapes=[dict(name=c["name"], shape=c["shape"], dtype=c["dtype"], ms=c["ms"][kind],
                          device_ms=f32_cases[c["name"]][f"{kind}_ms"], bound_ms=c["bound_ms"][kind],
                          bound_by=c["bound_by"][kind], errors=c["errors"], plain_ms=c["plain_ms"],
@@ -2970,8 +3320,7 @@ def main(argv=None):
                     ms=c["ms"][kind], bound_ms=c["bound_ms"][kind], bound_by=c["bound_by"][kind],
                     errors=c["errors"], plain_ms=c["plain_ms"]["bwd"], library_ms=c["library_ms"]["bwd"])
                for c in any_d.values() if c["routes"][kind] == "cuda_core"],
-            many_heads=[many["f32_d24"]] + [c for c in many.values() if c["routes"][kind] == "cuda_core"
-                                             and c is not many["f32_d24"]]))
+            many_heads=[many["f32_d24"]]))
     # the wgmma forward, dq and dk/dv at head dims other than 64 (bf16): no config of either package builds them, so
     # the main path launches them 0 times; their numbers are the headline case's, (1, 4, 4326, 128), one call each
     # (and (1, 4, 4326, 256) under "wide"), and the launches through flash_attention are counted in each case
@@ -3030,9 +3379,11 @@ def main(argv=None):
         launches_da3_api=api_res["launches"], da3_api_per=f"{API_CALLS} API calls of 6 views (phase 20a)",
         da3_api_shapes=api_long,
         max_abs_err=max(table["kernels"][0]["max_abs_err"], max(c["max_abs_err"] for c in api_long)))
+    short_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_short_fwd")
+    short_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
+                     max_abs_err=max(short_row["max_abs_err"], api_res["f32_case"]["errors"]["short"]["max_abs_err"]))
     cc_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_fwd")
-    cc_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
-                  max_abs_err=max(cc_row["max_abs_err"], api_res["f32_case"]["max_abs_err"]))
+    cc_row.update(max_abs_err=max(cc_row["max_abs_err"], api_res["f32_case"]["errors"]["tiled"]["max_abs_err"]))
     table["da3_api"] = {k: v for k, v in api_res.items() if k not in ("f32_case",)}
     table["da3_api"]["f"] = {k: v for k, v in api_res["f"].items() if k != "long_cases"}
     table["detection"] = det_res

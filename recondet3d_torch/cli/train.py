@@ -193,8 +193,8 @@ def data_iterator(dataset, num_points_gt: int, img_hw, n_cams: int, epochs: int,
     ``max_objs``, ``gt_bboxes_3d`` (B, max_objs, 9), ``gt_labels_3d`` and
     ``gt_bboxes_valid`` (B, max_objs). Samples go in dataset order,
     ``epochs`` times over, from sample ``start`` of that sequence: the JAX
-    iterator's order and values, except that images are resized by
-    ``image_io.resize_bilinear`` (within 1 of 255 of cv2.resize).
+    iterator's order and values (images resized by
+    ``image_io.resize_bilinear``, the same bits as cv2.resize).
 
     One sample is loaded ahead on a worker thread (file reads, decode and
     resize release the GIL), the port's stand-in for the JAX package's

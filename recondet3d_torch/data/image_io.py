@@ -8,11 +8,10 @@ The JAX package's loader decodes with ``cv2.imread`` and upsamples with
   it raises and names the file's format. It never returns nothing.
 - ``write_ppm`` writes the same P6 format (cv2 reads a P6 file whatever its
   extension, so one image tree serves both packages).
-- ``resize_bilinear`` is cv2's INTER_LINEAR geometry (half-pixel centres,
-  edge pixels repeated, no antialiasing) run through
-  ``torch.nn.functional.interpolate`` on the host. cv2 interpolates uint8
-  in 11-bit fixed point and this in fp32, so uint8 results may differ from
-  cv2's by 1 (tests/test_torch_train_cli.py measures the share).
+- ``resize_bilinear`` is cv2's INTER_LINEAR (half-pixel centres, edge
+  pixels repeated, no antialiasing) as cv2 computes it (``_linear_resize``):
+  uint8 in cv2's own 11-bit fixed point, the same bits as ``cv2.resize``;
+  float32 with cv2's taps in float32.
 - ``imread_rgb`` also reads 8-bit non-interlaced PNG (RGB, RGBA, grey, grey
   + alpha) with ``zlib`` and numpy, all five row filters; alpha is dropped
   and grey repeated, as PIL's ``convert("RGB")`` does. Other PNGs and other
@@ -21,17 +20,20 @@ The JAX package's loader decodes with ``cv2.imread`` and upsamples with
 - ``write_png`` writes (H, W, 3) uint8 as an RGB PNG, filter 0, zlib level
   6: the bytes of the JAX package's depth_vis writer.
 - ``resize_area`` and ``resize_cubic`` are cv2's INTER_AREA and INTER_CUBIC
-  (the DA3 API's ``InputProcessor``): per-axis (dst, src) weight matrices
-  applied as two products. INTER_AREA shrinking weighs each source
-  pixel by the share of it a destination cell covers (at a factor that is
-  not a whole number, which ``F.interpolate(mode="area")`` does not do);
-  enlarging on either axis, cv2's INTER_AREA interpolates linearly with
-  its own fractions, as here. INTER_CUBIC is Keys' kernel with A = -0.75,
-  half-pixel centres, edge pixels repeated. The products run as weighted
-  sums of each row's taps in fp64. cv2 runs uint8 cubic in 11-bit
-  fixed point and rounds between its two passes, so uint8 results may
-  differ from cv2's by 1 (tests/test_torch_input_processor.py states the
-  share).
+  (the DA3 API's ``InputProcessor``). INTER_AREA shrinking both axes
+  weighs each source pixel by the share of it a destination cell covers
+  (at a factor that is not a whole number, which
+  ``F.interpolate(mode="area")`` does not do): per-axis (dst, src) weight
+  matrices applied as weighted sums of each row's taps in fp64, rounded
+  once (uint8 halving: cv2's (s + 2) >> 2). Where an axis does not shrink,
+  cv2's INTER_AREA interpolates linearly with its own fractions
+  (``_linear_resize``: uint8 in cv2's fixed point, the same bits as
+  ``cv2.resize``). INTER_CUBIC is
+  Keys' kernel with A = -0.75, half-pixel centres, edge pixels repeated, in
+  fp64 sums. cv2 runs uint8 cubic in 11-bit fixed point and rounds between
+  its two passes, so uint8 cubic (and area shrinking, summed in another
+  order) may differ from cv2's by 1 (tests/test_torch_input_processor.py
+  states the share).
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 __all__ = ["imread_rgb", "write_ppm", "write_png", "read_png", "resize_bilinear", "resize_area", "resize_cubic"]
 
@@ -228,19 +229,13 @@ def write_ppm(path: str, rgb: np.ndarray) -> None:
 
 
 def resize_bilinear(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
-    """(H, W, C) uint8 or float32 -> (h, w, C) of the same dtype, bilinear
-    with half-pixel centres (cv2.INTER_LINEAR's geometry); uint8 is rounded
-    to nearest and clamped."""
-    h, w = size_hw
-    if img.shape[:2] == (h, w):
+    """cv2.resize(img, (w, h)) (INTER_LINEAR) for (H, W, C) uint8 (the same
+    bits: cv2's fixed point) or float32 (cv2's taps in float32)."""
+    if img.shape[:2] == tuple(size_hw):
         return img
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
-    y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)[0].permute(1, 2, 0)
-    if img.dtype == np.uint8:
-        y = y.round_().clamp_(0, 255).to(torch.uint8)
-    elif img.dtype != np.float32:
+    if img.dtype not in (np.uint8, np.float32):
         raise TypeError(f"resize_bilinear takes uint8 or float32, got {img.dtype}")
-    return y.contiguous().numpy()
+    return _linear_resize(img, size_hw, area=False)
 
 
 def _area_weights(src: int, dst: int) -> np.ndarray:
@@ -262,25 +257,75 @@ def _area_weights(src: int, dst: int) -> np.ndarray:
     return w
 
 
-def _area_linear_weights(src: int, dst: int) -> np.ndarray:
-    """(dst, src) weights of cv2's INTER_AREA when it does not shrink both
-    axes: linear interpolation between source pixels floor(d * scale) and
-    the next, at cv2's fraction ((d + 1) - (s + 1) / scale) mod 1."""
+def _linear_taps(src: int, dst: int, area: bool):
+    """cv2's two-tap interpolation of one axis, as cv2 forms it: for each
+    destination index the first source index s (int64) and the float32
+    fraction f of the next one. INTER_LINEAR: f = (d + 0.5) * scale - 0.5,
+    taken through float32, less its floor; INTER_AREA on an axis that does
+    not shrink: s = floor(d * scale), f = ((d + 1) - (s + 1) / scale) mod 1
+    (0 where it is not positive). Nothing is clamped here."""
+    d = np.arange(dst, dtype=np.float64)
     inv = dst / src
-    scale = 1.0 / inv
-    w = np.zeros((dst, src), np.float64)
-    for d in range(dst):
-        s = int(np.floor(d * scale))
-        fx = float(np.float32((d + 1) - (s + 1) * inv))
-        fx = 0.0 if fx <= 0 else fx - np.floor(fx)
-        if s < 0:
-            s, fx = 0, 0.0
-        if s + 1 >= src:
-            s, fx = src - 1, 0.0
-        w[d, s] += 1.0 - fx
-        if fx:
-            w[d, s + 1] += fx
-    return w
+    scale = 1.0 / inv  # as cv2 forms it: src / dst can round the other way
+    if area:
+        s = np.floor(d * scale)
+        f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+        return s.astype(np.int64), f
+    f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    return s.astype(np.int64), (f - s).astype(np.float32)
+
+
+def _clamp_taps(s: np.ndarray, f: np.ndarray, src: int):
+    """cv2's clamp of a horizontal tap: a first index before the image or on
+    its last pixel takes that edge pixel alone (f = 0)."""
+    edge = (s < 0) | (s >= src - 1)
+    return np.clip(s, 0, src - 1), np.where(edge, np.float32(0), f).astype(np.float32)
+
+
+_COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE: uint8 taps are round(w * 2^11)
+
+
+def _fixed_taps(f: np.ndarray) -> np.ndarray:
+    """(n, 2) int32 taps round((1 - f) * 2048), round(f * 2048), formed in
+    float32 and rounded half to even, as cv2's saturate_cast<short> does."""
+    one = np.float32(1)
+    taps = np.stack([(one - f) * np.float32(_COEF_SCALE), f * np.float32(_COEF_SCALE)], -1)
+    return np.rint(taps).astype(np.int32)
+
+
+def _linear_resize(img: np.ndarray, size_hw: Tuple[int, int], area: bool) -> np.ndarray:
+    """cv2's two-tap resize (INTER_LINEAR, or INTER_AREA where an axis does
+    not shrink) of (H, W[, C]) uint8 or float32, as cv2 computes it: a row
+    pass over the source rows the output reads, then each output row from
+    two of them. uint8 runs cv2's fixed point, the same bits as cv2.resize:
+    11-bit taps summed in integers, the two row sums combined as cv2's
+    vectorised VResizeLinear does, ((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >>
+    4)) >> 16) rounded by (x + 2) >> 2. float32 takes the float taps 1 - f
+    and f. Horizontal taps are clamped at the edges; vertical ones are not
+    (cv2 reads the edge row twice with both weights)."""
+    squeeze = img.ndim == 2
+    x = img[..., None] if squeeze else img
+    (H, W), (h, w) = x.shape[:2], size_hw
+    sx, fx = _clamp_taps(*_linear_taps(W, w, area), W)
+    sy, fy = _linear_taps(H, h, area)
+    fixed = img.dtype == np.uint8
+    ax, by = (torch.from_numpy(_fixed_taps(f) if fixed else np.stack([np.float32(1) - f, f], -1)) for f in (fx, fy))
+    y0, y1 = np.clip(sy, 0, H - 1), np.clip(sy + 1, 0, H - 1)
+    need = np.unique(np.concatenate([y0, y1]))  # the source rows the output reads, each summed once
+    src = torch.from_numpy(np.ascontiguousarray(x[need])).to(torch.int32 if fixed else torch.float32)
+    ix = torch.from_numpy(sx)
+    rows = src[:, ix].mul_(ax[None, :, :1]).add_(src[:, ix.add(1).clamp_(max=W - 1)].mul_(ax[None, :, 1:]))
+    r0, r1 = (rows[torch.from_numpy(np.searchsorted(need, yy))] for yy in (y0, y1))
+    if fixed:
+        r0, r1 = r0.bitwise_right_shift_(4), r1.bitwise_right_shift_(4)
+        out = r0.mul_(by[:, :1, None]).bitwise_right_shift_(16).add_(r1.mul_(by[:, 1:, None]).bitwise_right_shift_(16))
+        out = out.add_(2).bitwise_right_shift_(2).clamp_(0, 255).to(torch.uint8)
+    else:
+        out = r0.mul_(by[:, :1, None]).add_(r1.mul_(by[:, 1:, None]))
+    out = out.numpy()
+    return out[..., 0] if squeeze else out
 
 
 def _cubic_weights(src: int, dst: int, A: float = -0.75) -> np.ndarray:
@@ -339,8 +384,13 @@ def resize_area(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
     (H, W), (h, w) = img.shape[:2], size_hw
     if (H, W) == (h, w):
         return img.copy()
-    weights = _area_weights if H >= h and W >= w else _area_linear_weights
-    return _separable(img, weights(H, h), weights(W, w))
+    if img.dtype == np.uint8 and (H, W) == (2 * h, 2 * w) and (img.ndim == 2 or img.shape[2] in (1, 3, 4)):
+        # cv2's vectorised halving: each 2 x 2 sum rounded by (s + 2) >> 2, where a fp64 mean rounds ties to even
+        x = img.astype(np.int32)
+        return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2] + 2) >> 2).astype(np.uint8)
+    if H >= h and W >= w:
+        return _separable(img, _area_weights(H, h), _area_weights(W, w))
+    return _linear_resize(img, (h, w), area=True)
 
 
 def resize_cubic(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:

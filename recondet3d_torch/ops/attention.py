@@ -66,23 +66,31 @@ the reference the kernels are checked against on the card.
 
 fp32. The JAX package runs ``_flash_kernel`` and its backward in fp32 for
 the camera encoder's trunk (GT-pose conditioning: 16 heads of dim_out / 16,
-D = 24 to 96, one token a view). ``csrc/attn_cuda_core.cu`` holds a
-forward, a dq and a dk/dv kernel on the CUDA cores (fp32 products, no
-TF32), templated on the element type (fp32, bf16) and taking any D from 1
-to 256, with the roundings of the plain versions (for bf16 inputs qs, P and
-dS rounded to bf16 before the second products).
+D = 24 to 96, one token a view). ``csrc/attn_cuda_core.cu`` holds two
+CUDA-core designs (fp32 products, no TF32) for any D from 1 to 256:
+- short sequences (N and M up to 32, every ``CameraEnc`` up to the CLI's 32
+  views; fp32): ``attention_fwd_short``, the forward in one pass, and
+  ``attention_bwd_short``, dq, dk and dv with delta = rowsum(dO * O) in one
+  launch. They read q, k, v, O and dO through any B, H and row strides
+  (the qkv split's views are not copied) and the forward writes its output
+  as (B, N, H, D), returned as the (B, H, N, D) view whose
+  ``transpose(1, 2).reshape(B, N, C)`` is a view again;
+- any length: a tiled forward, dq and dk/dv kernel, templated on the
+  element type (fp32, bf16), with the roundings of the plain versions (for
+  bf16 inputs qs, P and dS rounded to bf16 before the second products).
 
 Which kernel a CUDA call runs is decided for each of the three kernels by
-dtype and head dim alone (``kernel_variant``): bf16 at any D from 1 to 256
-on the wgmma kernels, fp32 on the CUDA-core family; anything else (fp16,
+dtype, head dim and sequence lengths alone (``kernel_variant``): bf16 at any
+D from 1 to 256 on the wgmma kernels; fp32 on the short kernels where N and
+M are at most 32, else on the tiled CUDA-core ones; anything else (fp16,
 fp64, D > 256; no config of either package builds them) raises. This is
 routing by shape, not a fallback: a call never reaches a kernel its route
 does not name, and no call on a CUDA tensor reaches a plain version. The
-bf16 instances of the CUDA-core family are routed no more; they stay
-callable through their wrappers (``attention_fwd_cuda_core``,
-``attention_bwd_dq_cuda_core``, ``attention_bwd_dkv_cuda_core``) for the
-comparisons on the card. Every kernel folds B*H into grid.x with its row
-tiles, so B*H has no limit of its own.
+bf16 instances of the tiled CUDA-core family, and its fp32 ones at short
+lengths, are routed no more; they stay callable through their wrappers
+(``attention_fwd_cuda_core``, ``attention_bwd_dq_cuda_core``,
+``attention_bwd_dkv_cuda_core``) for the comparisons on the card. Every
+kernel folds B*H into grid.x, so B*H has no limit of its own.
 """
 
 from __future__ import annotations
@@ -90,6 +98,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -104,6 +113,8 @@ __all__ = [
     "attention_fwd_cuda_core",
     "attention_bwd_dq_cuda_core",
     "attention_bwd_dkv_cuda_core",
+    "attention_fwd_short",
+    "attention_bwd_short",
     "kernel_variant",
     "tma_cols",
     "flash_attention_bwd",
@@ -116,6 +127,7 @@ __all__ = [
 
 _NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # the limit of every kernel (the JAX kernels take any D; no preset goes past 96)
+SHORT_MAX_ROWS = 32  # the most query or key rows the short fp32 kernels take: one warp a query, one lane a key
 KERNELS = ("fwd", "dq", "dkv")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TMA_COL_MULTIPLE = 8  # a TMA row stride is a multiple of 16 bytes: 8 bf16
@@ -185,10 +197,18 @@ _ARGTYPES = {
     "attn_cc_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
     "attn_cc_bwd_dq": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
     "attn_cc_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F] * 2 + [_P],
+    "attn_cc_short_fwd": [ctypes.c_char_p],
+    "attn_cc_short_bwd": [ctypes.c_char_p],
 }
+# the short kernels' one packed argument (csrc/attn_cuda_core.cu ShortFwdArgs, ShortBwdArgs): the data pointers and
+# the stream, B, H, N, M, D, the B, H and row strides of each strided view, the scale(s). A ctypes call's host time
+# grows with its arguments, and these calls are launch-bound
+_SHORT_FWD_ARGS = struct.Struct("<7Q14qd")
+_SHORT_BWD_ARGS = struct.Struct("<11Q20q2d")
 _LIBRARY = {"flash_attn_fwd_bf16": "flash_attn_fwd", "flash_attn_bwd_dq_bf16": "flash_attn_bwd",
             "flash_attn_bwd_dkv_bf16": "flash_attn_bwd", "attn_cc_fwd": "attn_cuda_core",
-            "attn_cc_bwd_dq": "attn_cuda_core", "attn_cc_bwd_dkv": "attn_cuda_core"}
+            "attn_cc_bwd_dq": "attn_cuda_core", "attn_cc_bwd_dkv": "attn_cuda_core",
+            "attn_cc_short_fwd": "attn_cuda_core", "attn_cc_short_bwd": "attn_cuda_core"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,33 +276,63 @@ def _cut_cols(t, cols: int):
     return t if t.shape[-1] == cols else t[..., :cols].contiguous()
 
 
-def _launch(wrapper, name: str, tensors, ints, floats, device, key):
+@functools.lru_cache(maxsize=None)
+def _cuda_hooks():
+    """(current device index, raw current stream of a device index):
+    PyTorch's own C entry points, looked up once (the public
+    ``torch.cuda.current_stream`` builds a Stream object a call)."""
+    return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
+
+
+def _launch(wrapper, name: str, tensors, ints, floats, device, key, packed: Optional[struct.Struct] = None):
     """Launch kernel ``name`` on PyTorch's current stream with ``tensors``
     (None = a null pointer), the int arguments ``ints`` and the fp32
-    arguments ``floats``; raises if the launch is refused and adds one to
-    ``wrapper.launches`` and to ``wrapper.launches_by_shape[key]``."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = _kernel_fn(name)(*(None if t is None else t.data_ptr() for t in tensors), *ints, *floats, stream)
+    arguments ``floats`` (with ``packed``: the pointers, the stream, the
+    ints and the floats in that layout, handed over as one argument);
+    raises if the launch is refused and adds one to ``wrapper.launches`` and
+    to ``wrapper.launches_by_shape[key]``. The device is made current for
+    the launch only where it is not already."""
+    fn = _kernel_fn(name)
+    current, raw_stream = _cuda_hooks()
+    ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+    stream = raw_stream(device.index)
+    args = (packed.pack(*ptrs, stream, *ints, *floats),) if packed else (*ptrs, *ints, *floats, stream)
+    if current() == device.index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1
     wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
-def kernel_variant(dtype: torch.dtype, head_dim: int, kernel: str) -> str:
-    """The kernel that takes CUDA inputs of this dtype and head dim for
-    ``kernel`` ('fwd', 'dq' or 'dkv'): 'wgmma' for bf16 at any D from 1 to
-    256 (``csrc/flash_attn_fwd.cu``, ``flash_attn_bwd.cu``) or 'cuda_core'
-    for fp32 at any D from 1 to 256 (``csrc/attn_cuda_core.cu``; the camera
-    encoder's trunk is fp32). Raises ValueError for anything else (fp16,
-    fp64, D > 256)."""
+def kernel_variant(dtype: torch.dtype, head_dim: int, kernel: str, n: Optional[int] = None,
+                   m: Optional[int] = None) -> str:
+    """The kernel that takes CUDA inputs of this dtype, head dim and, where
+    given, query and key counts ``n`` and ``m`` for ``kernel`` ('fwd', 'dq'
+    or 'dkv'): 'wgmma' for bf16 at any D from 1 to 256
+    (``csrc/flash_attn_fwd.cu``, ``flash_attn_bwd.cu``); for fp32 at any D
+    from 1 to 256 (the camera encoder's trunk is fp32) 'short' where n and m
+    are at most 32 (``attn_cuda_core.cu``'s one-pass forward and fused
+    backward) and 'cuda_core' otherwise, or where they are not given (the
+    tiled kernels, which take any length). Raises ValueError for anything
+    else (fp16, fp64, D > 256)."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown attention kernel {kernel!r}: one of {KERNELS}")
     if dtype not in _DTYPE_CODE or not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(f"no attention kernel takes {dtype} with head dim {head_dim}: fp32 and bf16 take D from 1 "
                          f"to {MAX_HEAD_DIM}")
-    return "cuda_core" if dtype == torch.float32 else "wgmma"
+    if dtype != torch.float32:
+        return "wgmma"
+    short = n is not None and m is not None and 1 <= n <= SHORT_MAX_ROWS and 1 <= m <= SHORT_MAX_ROWS
+    return "short" if short else "cuda_core"
+
+
+def _route(q, k, kernel: str) -> str:
+    """``kernel_variant`` of (B, H, N, D) queries over (B, H, M, D) keys."""
+    return kernel_variant(q.dtype, q.shape[-1], kernel, q.shape[-2], k.shape[-2])
 
 
 def flash_attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -343,13 +393,106 @@ def attention_fwd_cuda_core(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Ten
     return out, lse
 
 
+def _check_short(what: str, q, k, v, kv_len, rows_like_q=(), lse=None):
+    """Takes fp32 (B, H, N, D) q and (B, H, M, D) k and v with N and M from 1
+    to 32 and D from 1 to 256, each with a unit stride along D and any other
+    strides, ``rows_like_q`` tensors of q's shape and dtype with a unit
+    stride along D (the forward's out and its gradient) and ``lse``, if
+    given, as contiguous fp32 (B, H, N), all on one CUDA device; anything
+    else raises (the device last, so that a tensor without storage meets
+    every other check). Returns (B, H, N, M, D, kv_len as int32 or None,
+    the B, H and row strides of q, k, v and of each of ``rows_like_q``)."""
+    f32 = torch.float32
+    if q.dtype != f32 or k.dtype != f32 or v.dtype != f32 or q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{what} kernel takes fp32 (B, H, N, D) tensors; q {q.dtype} {tuple(q.shape)}, k {k.dtype} "
+                         f"{tuple(k.shape)}, v {v.dtype}")
+    B, H, N, D = shape = q.shape
+    M = k.shape[2]
+    if k.shape != (B, H, M, D) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not (0 < D <= MAX_HEAD_DIM and 0 < N <= SHORT_MAX_ROWS and 0 < M <= SHORT_MAX_ROWS and B * H):
+        raise ValueError(f"{what} kernel takes N and M from 1 to {SHORT_MAX_ROWS}, D from 1 to {MAX_HEAD_DIM}; q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    for t in rows_like_q:
+        if t.dtype != f32 or t.shape != shape:
+            raise ValueError(f"{what} kernel takes out and dout as q's {q.dtype} {tuple(q.shape)}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    strides = [t.stride() for t in (q, k, v, *rows_like_q)]
+    if any(st[3] != 1 for st in strides):
+        raise ValueError(f"{what} kernel takes views with a unit stride along D")
+    if lse is not None and (lse.dtype != f32 or lse.shape != (B, H, N) or not lse.is_contiguous()):
+        raise ValueError(f"{what} kernel takes lse as contiguous fp32 ({B}, {H}, {N}); got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    dev = q.device
+    if kv_len is not None and (kv_len.shape != (B,) or kv_len.device != dev):
+        raise ValueError(f"kv_len must be ({B},) on {dev}; got {tuple(kv_len.shape)} on {kv_len.device}")
+    if dev.type != "cuda" or any(t.device != dev for t in (k, v, *rows_like_q, *([] if lse is None else [lse]))):
+        raise ValueError(f"{what}: tensors on {q.device}/{k.device}/{v.device}, not on one CUDA device")
+    kv_len = None if kv_len is None else kv_len.to(torch.int32).contiguous()
+    return B, H, N, M, D, kv_len, [x for st in strides for x in st[:3]]
+
+
+def _bnhd(B: int, H: int, N: int, D: int, device=None) -> torch.Tensor:
+    """An fp32 (B, H, N, D) tensor laid out as a contiguous (B, N, H, D) one:
+    its ``transpose(1, 2).reshape(B, N, H * D)`` is a view."""
+    return torch.empty_strided((B, H, N, D), (N * H * D, D, H * D, 1), dtype=torch.float32, device=device)
+
+
+def attention_fwd_short(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward for short fp32 sequences (N, M <= 32) in one launch:
+    (out (B, H, N, D), lse (B, H, N) fp32), what ``attention_plain``
+    computes. ``out`` is the ``transpose(1, 2)`` of a contiguous (B, N, H,
+    D) tensor, the layout an output projection over (B, N, H * D) reads.
+
+    q, k and v may be any views with a unit stride along D (the qkv split's).
+    CPU tensors take the plain version, laid out the same way. CUDA tensors
+    launch ``cc_short_fwd_kernel`` (``csrc/attn_cuda_core.cu``); anything it
+    does not take raises. Each launch adds one to
+    ``attention_fwd_short.launches`` and to
+    ``attention_fwd_short.launches_by_shape[(B, H, N, M, D)]``."""
+    if q.device.type == "cpu":
+        o, lse = attention_plain(q, k, v, kv_len, scale)
+        out = _bnhd(*o.shape)
+        out.copy_(o)
+        return out, lse
+    B, H, N, M, D, kv_len, strides = _check_short("attention_fwd_short", q, k, v, kv_len)
+    out = _bnhd(B, H, N, D, q.device)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    _launch(attention_fwd_short, "attn_cc_short_fwd", (q, k, v, kv_len, out, lse), (B, H, N, M, D, *strides),
+            (D ** -0.5 if scale is None else scale,), q.device, (B, H, N, M, D), packed=_SHORT_FWD_ARGS)
+    return out, lse
+
+
+def attention_bwd_short(q, k, v, out, lse, dout, kv_len=None, scale=None):
+    """dq, dk and dv of ``attention_fwd_short``'s ``out`` for short fp32
+    sequences in one launch: ``cc_short_bwd_kernel`` forms delta =
+    rowsum(dout * out), P and dS of each head in shared memory and sums
+    every gradient row in a fixed order (the same bits run to run). q, k, v,
+    out and dout may be any views with a unit stride along D; dq (B, H, N,
+    D), dk and dv (B, H, M, D) come contiguous. CPU tensors take
+    ``attention_bwd_plain``; CUDA tensors launch the kernel or raise.
+    Launches counted under (B, H, N, M, D)."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, lse, dout, kv_len, scale)
+    B, H, N, M, D, kv_len, strides = _check_short("attention_bwd_short", q, k, v, kv_len, rows_like_q=(out, dout),
+                                                  lse=lse)
+    scale = D ** -0.5 if scale is None else scale
+    dq = torch.empty((B, H, N, D), dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty((B, H, M, D), dtype=torch.float32, device=q.device) for _ in range(2))
+    _launch(attention_bwd_short, "attn_cc_short_bwd", (q, k, v, out, dout, lse, kv_len, dq, dk, dv),
+            (B, H, N, M, D, *strides), (scale, scale), q.device, (B, H, N, M, D), packed=_SHORT_BWD_ARGS)
+    return dq, dk, dv
+
+
 def attention_fwd(q, k, v, kv_len=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse): the plain version on CPU tensors; on CUDA tensors the
-    kernel ``kernel_variant`` names for the dtype and head dim (raises for
-    what none takes)."""
+    kernel ``kernel_variant`` names for the dtype, head dim and lengths
+    (raises for what none takes)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, kv_len, scale)
-    fwd = flash_attention_fwd if kernel_variant(q.dtype, q.shape[-1], "fwd") == "wgmma" else attention_fwd_cuda_core
+    route = _route(q, k, "fwd")
+    fwd = flash_attention_fwd if route == "wgmma" else attention_fwd_short if route == "short" else \
+        attention_fwd_cuda_core
     return fwd(q, k, v, kv_len, scale)
 
 
@@ -429,18 +572,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_len=None, scale=None):
     and ``lse`` as the forward returned them and the gradient ``dout`` of
     ``out``.
 
-    CPU tensors take ``attention_bwd_plain``. CUDA tensors launch the dq and
-    the dk/dv kernel that ``kernel_variant`` names for each (bf16: the wgmma
-    pair; fp32: the CUDA-core pair; anything else raises, never the plain
-    version)."""
+    CPU tensors take ``attention_bwd_plain``. CUDA tensors launch what
+    ``kernel_variant`` names (bf16: the wgmma dq and dk/dv kernels; fp32 at
+    N, M <= 32: the one fused short kernel, which reads any strides; other
+    fp32: the tiled CUDA-core dq and dk/dv kernels; the kernels of two
+    launches take contiguous inputs and delta = rowsum(dout * out) from here;
+    anything else raises, never the plain version)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, kv_len, scale)
     if out.shape != q.shape or out.device != q.device or dout.device != q.device:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} on {out.device}, dout on {dout.device}, "
                          f"q {tuple(q.shape)} on {q.device}")
-    D = q.shape[-1]
-    dq_fn = flash_attention_bwd_dq if kernel_variant(q.dtype, D, "dq") == "wgmma" else attention_bwd_dq_cuda_core
-    dkv_fn = flash_attention_bwd_dkv if kernel_variant(q.dtype, D, "dkv") == "wgmma" else attention_bwd_dkv_cuda_core
+    route = _route(q, k, "dq")
+    if route == "short":
+        return attention_bwd_short(q, k, v, out, lse, dout, kv_len, scale)
+    dq_fn, dkv_fn = ((flash_attention_bwd_dq, flash_attention_bwd_dkv) if route == "wgmma"
+                     else (attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core))
+    dout = dout.contiguous()
     delta = (dout.float() * out.float()).sum(dim=-1)
     dq = dq_fn(q, k, v, dout, lse, delta, kv_len, scale)
     dk, dv = dkv_fn(q, k, v, dout, lse, delta, kv_len, scale)
@@ -448,7 +596,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, kv_len=None, scale=None):
 
 
 _KERNEL_WRAPPERS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv, attention_fwd_cuda_core,
-                   attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core)
+                   attention_bwd_dq_cuda_core, attention_bwd_dkv_cuda_core, attention_fwd_short, attention_bwd_short)
 
 
 def reset_launch_counts() -> None:
@@ -475,8 +623,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, kv_len = ctx.saved_tensors
-        # the gradient arrives through a transpose of the output: the kernels take it contiguous
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), kv_len, ctx.scale)
+        # the gradient arrives through a transpose of the output: flash_attention_bwd makes it contiguous for the
+        # kernels that need it, the short one reads it as it comes
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, kv_len, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -488,15 +637,20 @@ def flash_attention(q, k, v, kv_len=None, scale=None, impl: str = "auto") -> tor
     backward kernels when a gradient flows) and the plain versions on CPU
     tensors; 'plain' forces ``attention_plain`` under autograd (the
     reference runs). On CUDA each of the forward, dq and dk/dv kernels is
-    the one ``kernel_variant`` names for the dtype and head dim (bf16: the
-    wgmma kernels at any D up to 256; fp32: the CUDA-core family); other
-    inputs raise ValueError.
+    the one ``kernel_variant`` names for the dtype, head dim and lengths
+    (bf16: the wgmma kernels at any D up to 256; fp32: the short kernels at
+    N, M <= 32, which read q, k and v as they come where their stride along
+    D is 1, else the tiled CUDA-core family); other inputs raise ValueError.
+    Only the kernels that need them get contiguous copies.
     """
     if impl == "plain":
         return attention_plain(q, k, v, kv_len, scale)[0]
     if impl != "auto":
         raise ValueError(f"unknown attention impl {impl!r}")
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_len, scale)
+    strided = (q.device.type != "cpu" and q.dtype == torch.float32 and q.dim() == 4 and k.dim() == 4
+               and _route(q, k, "fwd") == "short")
+    q, k, v = (t if strided and t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, kv_len, scale)
 
 
 def multi_head_attention(x, qkv_w, qkv_b, proj_w, proj_b, num_heads, **kwargs):

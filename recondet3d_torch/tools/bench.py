@@ -62,9 +62,10 @@ def attention_kernel_flops() -> float:
     """4*N*M*D a head for every attention-kernel launch counted since the
     last ``reset_launch_counts()`` (forward kernels only: a request runs no
     backward)."""
-    from recondet3d_torch.ops.attention import attention_fwd_cuda_core, flash_attention_fwd
+    from recondet3d_torch.ops.attention import attention_fwd_cuda_core, attention_fwd_short, flash_attention_fwd
 
-    return sum(4.0 * B * H * N * M * D * n for wrapper in (flash_attention_fwd, attention_fwd_cuda_core)
+    return sum(4.0 * B * H * N * M * D * n for wrapper in (flash_attention_fwd, attention_fwd_cuda_core,
+                                                           attention_fwd_short)
                for (B, H, N, M, D), n in wrapper.launches_by_shape.items())
 
 

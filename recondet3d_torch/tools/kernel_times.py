@@ -21,10 +21,12 @@ at the head dims no DA3 trunk has ((1, 4, N, D), D in {32, 96, 128, 20}, N
 in {721, 4326}, and D in {160, 256} at 4,326): the forward, dq and dk/dv
 through the kernels the tree routes them to (its ``attention_fwd``, and the
 wgmma or CUDA-core dq and dk/dv wrapper its ``kernel_variant(dtype, D,
-kernel)`` names: trees since the per-kernel routing); the fp32 attention forward at the camera
-encoders' shapes (device time from ``torch.profiler``: a call is
-launch-bound there) through the tree's wrapper (``attention_fwd_cuda_core``,
-or ``attention_fwd_f32`` in trees before the CUDA-core family). Prints one
+kernel)`` names: trees since the per-kernel routing); the fp32 attention forward and backward at the
+camera encoders' shapes, each on the tree's own route (its ``attention_fwd``
+and ``flash_attention_bwd``: the tiled CUDA-core kernels and delta's
+expression, or one launch each of the short kernels), device time from
+``torch.profiler`` (a call is launch-bound there) and host time a call in a
+loop of calls. Prints one
 JSON line: ms per call of each, and the compiler's report of the two flash
 libraries (``ptxas``). Needs CUDA. It calls only ``build_resdet3d``, the
 anchored scene, the kernel build and the FPS and attention wrappers, which
@@ -141,7 +143,8 @@ def main(argv=None) -> int:
         print("kernel_times: CUDA is not available", file=sys.stderr)
         return 1
     res = {"fps_ms": {}, "fps_indices_sum": {}, "dq_ms": {}, "dkv_ms": {}, "fwd_ms": {}, "any_d_fwd_ms": {},
-           "any_d_dq_ms": {}, "any_d_dkv_ms": {}, "f32_fwd_device_ms": {}}
+           "any_d_dq_ms": {}, "any_d_dkv_ms": {}, "f32_fwd_device_ms": {}, "f32_bwd_device_ms": {},
+           "f32_fwd_host_ms": {}, "f32_bwd_host_ms": {}}
     for case in torch.load(args.fps_inputs):
         p, m, s, k = (case[key].cuda() if torch.is_tensor(case[key]) else case[key]
                       for key in ("points", "valid", "start", "k"))
@@ -167,11 +170,15 @@ def main(argv=None) -> int:
         for kind in ("dq", "dkv"):
             fn = bwd_wrapper(kind, D)
             res[f"any_d_{kind}_ms"][name] = time_ms(lambda: fn(q, k, v, do, lse, delta), args.iters_dq)
-    f32_fwd = getattr(attention, "attention_fwd_cuda_core", None) or attention.attention_fwd_f32
     for name, shape in F32_SHAPES.items():
         rng = np.random.default_rng(40)
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3))
-        res["f32_fwd_device_ms"][name] = device_ms_per_call(lambda: f32_fwd(q, k, v), F32_CALLS)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
+        out, lse = attention.attention_fwd(q, k, v)
+        calls = dict(fwd=lambda: attention.attention_fwd(q, k, v),
+                     bwd=lambda: attention.flash_attention_bwd(q, k, v, out, lse, do))
+        for kind, fn in calls.items():
+            res[f"f32_{kind}_device_ms"][name] = device_ms_per_call(fn, F32_CALLS)
+            res[f"f32_{kind}_host_ms"][name] = time_ms(fn, F32_CALLS)
     if args.requests:
         res["request_ms"] = request_ms(args.requests)
     load_kernels()

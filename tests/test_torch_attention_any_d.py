@@ -4,8 +4,9 @@ CUDA-core kernels of ``csrc/attn_cuda_core.cu`` are held to on the card)
 against the JAX package's Pallas backward in interpret mode at D in {20, 24,
 32, 96, 128}; ``CameraEnc``'s parameter gradients against ``jax.grad`` of the
 JAX module; the dispatch (``kernel_variant``) of device tensors, which never
-reaches a plain version; and, on a GPU, the CUDA-core kernels and the B*H >
-65535 launches of all the attention kernels against their plain versions.
+reaches a plain version, on the short fp32 route and past it; and, on a GPU,
+the CUDA-core kernels and the B*H > 65535 launches of all the attention
+kernels (the short fp32 ones included) against their plain versions.
 
 Tolerances. fp32: relative L2 <= 1e-5 per gradient (fp32 sums of the same
 terms in another order; readings ~1e-7). bf16: relative L2 <= 1e-2, the gate
@@ -151,12 +152,14 @@ def test_device_tensors_never_reach_a_plain_version(monkeypatch, dtype, D):
 
     monkeypatch.setattr(tattn, "attention_plain", refuse)
     monkeypatch.setattr(tattn, "attention_bwd_plain", refuse)
-    q = torch.empty(2, 4, 8, D, device="meta", dtype=dtype)
-    lse = torch.empty(2, 4, 8, device="meta")
-    for call in (lambda: flash_attention(q, q, q), lambda: tattn.attention_fwd(q, q, q),
-                 lambda: flash_attention_bwd(q, q, q, q, lse, q)):
-        with pytest.raises(ValueError):
-            call()
+    for N in (8, 40):  # fp32: the short route, then the tiled one past 32 rows
+        q = torch.empty(2, 4, N, D, device="meta", dtype=dtype)
+        lse = torch.empty(2, 4, N, device="meta")
+        for call in (lambda: flash_attention(q, q, q), lambda: tattn.attention_fwd(q, q, q),
+                     lambda: flash_attention_bwd(q, q, q, q, lse, q), lambda: tattn.attention_fwd_short(q, q, q),
+                     lambda: tattn.attention_bwd_short(q, q, q, q, lse, q)):
+            with pytest.raises(ValueError):
+                call()
 
 
 # ---------------------------------------------------------------- on the card
@@ -230,7 +233,8 @@ def test_cuda_core_kernels_match_plain(dtype, D, use_kv_len):
 
 
 # (B, H, N, D) with B * H = 65,552 > 65,535, the most grid.y takes
-_MANY_HEADS = [("wgmma", (4097, 16, 64, 64), torch.bfloat16), ("cuda_core", (4097, 16, 6, 24), torch.float32)]
+_MANY_HEADS = [("wgmma", (4097, 16, 64, 64), torch.bfloat16), ("cuda_core", (4097, 16, 6, 24), torch.float32),
+               ("short", (4097, 16, 6, 24), torch.float32)]
 
 
 def _worst_head(got, ref, scale=None):
@@ -250,11 +254,17 @@ def test_cuda_kernels_take_more_than_65535_heads(variant, shape, dtype):
     B, H, N, D = shape
     q, k, v, g = _cuda_inputs(shape, N, seed=3, dtype=dtype)
     reset_launch_counts()
-    fwd = flash_attention_fwd if variant == "wgmma" else attention_fwd_cuda_core
+    fwd = {"wgmma": flash_attention_fwd, "cuda_core": attention_fwd_cuda_core,
+           "short": tattn.attention_fwd_short}[variant]
     out, lse = fwd(q, k, v)
-    got = flash_attention_bwd(q, k, v, out, lse, g)
+    if variant == "cuda_core":  # the tiled backward, which fp32 at 6 rows is routed past
+        delta = (g * out).sum(dim=-1)
+        got = (attention_bwd_dq_cuda_core(q, k, v, g, lse, delta),
+               *attention_bwd_dkv_cuda_core(q, k, v, g, lse, delta))
+    else:
+        got = flash_attention_bwd(q, k, v, out, lse, g)
     torch.cuda.synchronize()
-    assert fwd.launches == 1
+    assert fwd.launches == 1 and (variant != "short" or tattn.attention_bwd_short.launches == 1)
     ref_out = attention_plain(q, k, v)[0]
     if dtype == torch.bfloat16:
         qs = (q.float() * D ** -0.5).to(dtype)

@@ -4,7 +4,8 @@
 64-column chunks of the head dim.
 
 On the CPU: the routing of each kernel (``kernel_variant``) for fp32 and
-bf16 at every D from 1 to 256 and its refusals; that no wrapper hands a
+bf16 at every D from 1 to 256, with and without the sequence lengths, and
+its refusals; that no wrapper hands a
 device tensor to a plain version; and the wrappers' padding of head dims
 that are no multiple of 8 (``tma_cols``): the plain forward and backward on
 zero-padded inputs, cut back to D columns, equal the unpadded ones within
@@ -88,9 +89,14 @@ def _inputs(shape_q, M, seed):
 @pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_each_kernel_is_routed_by_dtype_and_head_dim(dtype, kernel):
+    """By dtype and head dim, and for fp32 by the lengths too: the short
+    kernels at N, M <= 32, the tiled CUDA-core ones past that or without
+    lengths."""
     for D in range(1, tattn.MAX_HEAD_DIM + 1):
         want = "cuda_core" if dtype == torch.float32 else "wgmma"
         assert kernel_variant(dtype, D, kernel) == want, D
+        assert kernel_variant(dtype, D, kernel, 33, 6) == kernel_variant(dtype, D, kernel, 6, 4326) == want, D
+        assert kernel_variant(dtype, D, kernel, 6, 6) == ("short" if dtype == torch.float32 else "wgmma"), D
 
 
 @pytest.mark.parametrize("dtype,D,kernel", [(torch.float16, 64, "fwd"), (torch.float64, 64, "dkv"),
@@ -99,6 +105,8 @@ def test_each_kernel_is_routed_by_dtype_and_head_dim(dtype, kernel):
 def test_routing_refuses_what_no_kernel_takes(dtype, D, kernel):
     with pytest.raises(ValueError, match="no attention kernel"):
         kernel_variant(dtype, D, kernel)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        kernel_variant(dtype, D, kernel, 6, 6)
 
 
 def test_routing_refuses_an_unknown_kernel():
@@ -126,6 +134,8 @@ _CALLS = {
     "flash_attention_bwd_dkv": lambda q, s: flash_attention_bwd_dkv(q, q, q, q, s, s),
     "attention_bwd_dq_cuda_core": lambda q, s: attention_bwd_dq_cuda_core(q, q, q, q, s, s),
     "attention_bwd_dkv_cuda_core": lambda q, s: attention_bwd_dkv_cuda_core(q, q, q, q, s, s),
+    "attention_fwd_short": lambda q, s: tattn.attention_fwd_short(q, q, q),
+    "attention_bwd_short": lambda q, s: tattn.attention_bwd_short(q, q, q, q, s, q),
     "flash_attention_bwd": lambda q, s: flash_attention_bwd(q, q, q, q, s, q),
     "flash_attention": lambda q, s: flash_attention(q, q, q),
 }

@@ -3,8 +3,10 @@
 heads of D = 24 and 64) with shared numpy-made weights; the fp32 attention
 it runs against the Pallas kernel in interpret mode at the camera encoder's
 head dims; and the dispatch rules of ``flash_attention`` for fp32 inputs
-(the plain version on CPU tensors, the CUDA-core kernels on CUDA tensors of
-a head dim up to 256, forward and backward, a raise for anything else).
+(the plain version on CPU tensors; on CUDA tensors of a head dim up to 256
+the short kernels where queries and keys number at most 32, the tiled
+CUDA-core kernels past that, forward and backward; a raise for anything
+else).
 
 Tolerance: 1e-4 absolute and relative. Both sides compute in fp32; the
 readings are ~4e-6 on outputs of size ~4 (sums in another order)."""
@@ -20,7 +22,9 @@ from recondet3d.models.da3.cam import CameraEnc as JCameraEnc
 from recondet3d.ops import attention as jattn
 from recondet3d_torch.models.da3.cam import CameraEnc
 from recondet3d_torch.ops.attention import (
+    attention_bwd_short,
     attention_fwd_cuda_core,
+    attention_fwd_short,
     attention_plain,
     flash_attention,
     flash_attention_fwd,
@@ -111,7 +115,14 @@ def test_fp32_dispatch_on_cpu_runs_the_plain_version_and_launches_nothing():
     *[(torch.bfloat16, d, ("wgmma",) * 3) for d in (129, 256)],
 ])
 def test_kernel_variant_takes(dtype, D, variant):
+    """Without lengths (and past 32 rows) the routes above; fp32 with query
+    and key counts up to 32 (the camera encoder's views) the short kernels."""
     assert tuple(kernel_variant(dtype, D, kernel) for kernel in ("fwd", "dq", "dkv")) == variant
+    for n, m in ((721, 721), (33, 6), (6, 33), (6, None)):
+        assert tuple(kernel_variant(dtype, D, kernel, n, m) for kernel in ("fwd", "dq", "dkv")) == variant
+    short = ("short",) * 3 if dtype == torch.float32 else variant
+    for n, m in ((6, 6), (1, 32), (32, 32)):
+        assert tuple(kernel_variant(dtype, D, kernel, n, m) for kernel in ("fwd", "dq", "dkv")) == short
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (torch.float64, 64), (torch.float32, 264),
@@ -120,6 +131,8 @@ def test_kernel_variant_raises(dtype, D):
     for kernel in ("fwd", "dq", "dkv"):
         with pytest.raises(ValueError, match="no attention kernel"):
             kernel_variant(dtype, D, kernel)
+        with pytest.raises(ValueError, match="no attention kernel"):
+            kernel_variant(dtype, D, kernel, 6, 6)
 
 
 def test_fp32_kernel_wrapper_refuses_what_it_does_not_take():
@@ -138,3 +151,10 @@ def test_fp32_kernel_wrapper_refuses_what_it_does_not_take():
             attention_fwd_cuda_core(q, q, q)
         with pytest.raises(ValueError, match="no attention kernel"):
             flash_attention(q, q, q)
+    # the short route's wrappers (the camera encoder's fp32 calls) raise alike
+    for q in (torch.empty(2, 16, 6, 24, device="meta", dtype=torch.float16), torch.empty(2, 16, 6, 264, device="meta"),
+              torch.empty(2, 16, 6, 24, device="meta")):
+        with pytest.raises(ValueError):
+            attention_fwd_short(q, q, q)
+        with pytest.raises(ValueError):
+            attention_bwd_short(q, q, q, q, torch.empty(2, 16, 6, device="meta"), q)

@@ -2,13 +2,15 @@
 
 - ``InputProcessor``: the processed uint8 images of the two packages agree
   within one level (cv2 runs uint8 cubic in 11-bit fixed point and rounds
-  between passes, its area path accumulates in another order); the share of
-  pixels that differ is bounded per case below (readings with cv2 5.0.0 in
-  the comments). The normalised batches follow from
+  between passes, its area path accumulates in another order) and bit for
+  bit where INTER_AREA takes cv2's linear path (an axis that grows), which
+  the port runs in cv2's fixed point; the share of pixels that differ is
+  bounded per case below (readings with cv2 5.0.0 in the comments). The normalised batches follow from
   the uint8 images in both, and the intrinsics are scaled identically.
 - ``resize_area`` / ``resize_cubic`` against cv2 directly, in float32 (no
   rounding: 1e-3 of the 0-255 range for area, 3e-2 for cubic, whose
-  fixed-point weights cv2 keeps even in float) and uint8.
+  fixed-point weights cv2 keeps even in float) and uint8, each case's share
+  of values one level off bounded at its reading.
 - ``read_png`` against PIL for RGB, RGBA, grey and grey + alpha, each row
   filter (none, sub, up, average, Paeth) written here on purpose, and
   ``imread_rgb`` on PNG and PPM; ``write_png`` gives the JAX package's bytes.
@@ -37,22 +39,26 @@ def _photo(seed, h, w):
     return np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
 
 
-# (source size, process_res, the most share of pixels that may differ by one level)
+# (source size, process_res, the most share of pixels that may differ by one level, resize method)
 PROCESS_CASES = {
-    "downscale_900x1600_to_504": ((900, 1600), 504, 1e-3),  # INTER_AREA; reading 2.1e-5
-    "upscale_90x160_to_504": ((90, 160), 504, 1e-3),  # INTER_CUBIC; reading 2.0e-5
-    "downscale_90x160_to_56": ((90, 160), 56, 5e-3),  # INTER_AREA; reading 3.2e-4
+    "downscale_900x1600_to_504": ((900, 1600), 504, 1e-3, "upper_bound_resize"),  # INTER_AREA; reading 2.1e-5
+    "upscale_90x160_to_504": ((90, 160), 504, 1e-3, "upper_bound_resize"),  # INTER_CUBIC; reading 2.0e-5
+    "downscale_90x160_to_56": ((90, 160), 56, 5e-3, "upper_bound_resize"),  # INTER_AREA; reading 3.2e-4
+    # INTER_AREA where one axis grows: cv2's linear path in its fixed point, matched bit for bit
+    "mixed_405x510_to_406x504": ((405, 510), 504, 0.0, "upper_bound_resize"),
+    "mixed_503x2983_to_504x2982": ((503, 2983), 504, 0.0, "lower_bound_resize"),
+    "mixed_10x1008_to_14x504": ((10, 1008), 504, 0.0, "upper_bound_resize"),
 }
 
 
 @pytest.mark.parametrize("case", list(PROCESS_CASES))
 def test_input_processor_matches_jax(case):
-    (H, W), res, share = PROCESS_CASES[case]
+    (H, W), res, share, method = PROCESS_CASES[case]
     imgs = [_photo(10 + i, H, W) for i in range(2)]
     ixt = np.tile(np.array([[1266.0, 0, W / 2], [0, 1266.0, H / 2], [0, 0, 1]], np.float32), (2, 1, 1))
     ext = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
-    jb, je, jk, jraw = JInputProcessor(process_res=res)(imgs, ext, ixt)
-    tb, te, tk, traw = InputProcessor(process_res=res)(imgs, ext, ixt)
+    jb, je, jk, jraw = JInputProcessor(process_res=res, process_res_method=method)(imgs, ext, ixt)
+    tb, te, tk, traw = InputProcessor(process_res=res, process_res_method=method)(imgs, ext, ixt)
     assert traw.shape == jraw.shape and traw.dtype == np.uint8
     diff = np.abs(traw.astype(int) - jraw.astype(int))
     assert diff.max() <= 1, diff.max()
@@ -63,15 +69,29 @@ def test_input_processor_matches_jax(case):
     np.testing.assert_array_equal(te, je)
 
 
-@pytest.mark.parametrize("src,dst", [((900, 1600), (280, 504)), ((90, 160), (280, 504)), ((90, 160), (28, 56)),
-                                     ((100, 100), (50, 50)), ((60, 90), (70, 40)), ((375, 1242), (154, 504))])
+# (source, destination) -> the most share of uint8 values resize_area / resize_cubic may put one level off cv2's:
+# the readings with cv2 5.0.0. INTER_AREA where an axis grows (cv2's linear path) and at an exact halving (cv2's
+# (s + 2) >> 2) is bit for bit; shrinking at other factors sums in fp64 and rounds once; uint8 cubic is not cv2's
+# fixed point
+RESAMPLE_SHARES = {
+    ((900, 1600), (280, 504)): dict(resize_area=1e-4, resize_cubic=2.5e-3),  # readings 6.1e-5, 1.9e-3
+    ((90, 160), (280, 504)): dict(resize_area=0.0, resize_cubic=3e-4),  # reading 2.0e-4
+    ((90, 160), (28, 56)): dict(resize_area=3e-4, resize_cubic=0.0),  # reading 2.1e-4
+    ((100, 100), (50, 50)): dict(resize_area=0.0, resize_cubic=0.0),
+    ((60, 90), (70, 40)): dict(resize_area=0.0, resize_cubic=0.0),
+    ((375, 1242), (154, 504)): dict(resize_area=0.0, resize_cubic=2e-3),  # reading 1.4e-3
+}
+
+
+@pytest.mark.parametrize("src,dst", list(RESAMPLE_SHARES))
 def test_resamplers_match_cv2(src, dst):
     img = np.random.default_rng(sum(src) + sum(dst)).integers(0, 256, src + (3,), dtype=np.uint8)
     for fn, flag, f32_tol in ((resize_area, cv2.INTER_AREA, 1e-3), (resize_cubic, cv2.INTER_CUBIC, 3e-2)):
         ref = cv2.resize(img.astype(np.float32), dst[::-1], interpolation=flag)
         np.testing.assert_allclose(fn(img.astype(np.float32), dst), ref, atol=f32_tol)
         diff = np.abs(fn(img, dst).astype(int) - cv2.resize(img, dst[::-1], interpolation=flag).astype(int))
-        assert diff.max() <= 1 and (diff > 0).mean() <= 0.15, (fn.__name__, diff.max(), (diff > 0).mean())
+        share = RESAMPLE_SHARES[src, dst][fn.__name__]
+        assert diff.max() <= 1 and (diff > 0).mean() <= share, (fn.__name__, diff.max(), (diff > 0).mean())
 
 
 def _png_bytes(px: np.ndarray, ctype: int, filters) -> bytes:

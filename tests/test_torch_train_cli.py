@@ -3,11 +3,10 @@
 (``create_data`` -> ``train`` -> checkpoint -> resume -> ``test``) on the CPU.
 
 - ``image_io`` against cv2 on this host: binary PPM decodes bit-exactly;
-  the bilinear resize is within 1 of 255 of ``cv2.resize`` (cv2 works in
-  11-bit fixed point, the port in fp32): on 90x160 -> 900x1600 uint8, about
-  12.6 % of the values differ, every one by 1.
-- Both ``data_iterator``s give the same batches on the structured fixture:
-  exact except ``img``, within 1 of 255.
+  the uint8 bilinear resize gives ``cv2.resize``'s bits (cv2's 11-bit fixed
+  point, run by the port).
+- Both ``data_iterator``s give the same batches on the structured fixture,
+  bit for bit, ``img`` included.
 - The upstream-named DA3 loader on a safetensors file written from the
   port's own ``state_dict()`` (a nested net of small trunks: every prefix):
   the port reloads it bit-exactly, the JAX package's
@@ -101,8 +100,13 @@ def test_imread_never_returns_nothing(tmp_path, monkeypatch):
     assert np.array_equal(imread_rgb(str(tmp_path / "p.ppm")), rgb)
 
 
-@pytest.mark.parametrize("src,dst", [((90, 160), (900, 1600)), ((90, 160), (45, 70)), ((37, 53), (100, 61))])
+@pytest.mark.parametrize("src,dst", [((90, 160), (900, 1600)), ((90, 160), (45, 70)), ((37, 53), (100, 61)),
+                                     ((900, 1600), (280, 504)), ((450, 800), (900, 1600))])
 def test_resize_within_one_of_cv2(src, dst):
+    """uint8: cv2's INTER_LINEAR in its own fixed point, the same bits (the
+    fixture's 90x160 -> the loaders' 900x1600, a shrink to the DA3 input,
+    2x enlarging); float32 within 1e-2 of cv2's float path (2e-2 at the
+    3.2x shrink)."""
     import cv2
 
     rng = np.random.default_rng(src[0] + dst[0])
@@ -110,14 +114,13 @@ def test_resize_within_one_of_cv2(src, dst):
     got = resize_bilinear(im, dst)
     ref = cv2.resize(im, (dst[1], dst[0]))
     assert got.dtype == np.uint8 and got.shape == ref.shape
-    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
-    assert diff.max() <= 1
-    if (src, dst) == ((90, 160), (900, 1600)):
-        assert 0.10 < (diff > 0).mean() < 0.15  # the share the module docstring states
+    np.testing.assert_array_equal(got, ref)
     f = resize_bilinear(im.astype(np.float32), dst)
     fref = cv2.resize(im.astype(np.float32), (dst[1], dst[0]))
-    # fp32 on both sides, the interpolation weights formed in another order: ~1e-5 of the 0..255 range
-    assert f.dtype == np.float32 and np.abs(f - fref).max() < 1e-2
+    # fp32 on both sides, the interpolation weights formed in another order: ~1e-5 of the 0..255 range; cv2's float
+    # path places its taps otherwise at the 3.2x shrink (reading 1.5e-2 there, 1.9e-3 at most elsewhere)
+    f32_tol = 2e-2 if (src, dst) == ((900, 1600), (280, 504)) else 1e-2
+    assert f.dtype == np.float32 and np.abs(f - fref).max() < f32_tol
 
 
 # --------------------------------------------------------------------------------------------------- the iterator
@@ -149,10 +152,7 @@ def test_data_iterators_give_the_same_batches(structured, max_objs, epochs):
         assert set(g) == set(r) == keys
         for k in keys:
             assert torch.is_tensor(g[k]) and g[k].numpy().dtype == r[k].dtype and tuple(g[k].shape) == r[k].shape, k
-            if k == "img":
-                assert np.abs(g[k].numpy() - r[k]).max() <= 1.0
-            else:
-                assert np.array_equal(g[k].numpy(), r[k]), k
+            assert np.array_equal(g[k].numpy(), r[k]), k
     tail = list(data_iterator(NuScenesDataset(**kw), **dict(it_kw, start=3)))
     assert len(tail) == len(got) - 3 and all(torch.equal(a["gt_points"], b["gt_points"]) for a, b in zip(tail, got[3:]))
 
@@ -352,9 +352,8 @@ def test_entry_points_run_on_the_card_unless_told(structured, tmp_path):
 @pytest.fixture(scope="module")
 def structured_full_res(tmp_path_factory):
     """The structured fixture with its images rewritten at the loaders' 900x1600 (cv2's resize, binary PPM):
-    neither package's loader resizes them, so both read the same pixels. The loaders' own resizes differ by 1 of
-    255 (``test_resize_within_one_of_cv2``), which a random DA3 net and the point path's selections (FPS, ball
-    query) turn into other clouds: the CLIs are compared here, the resize above."""
+    neither package's loader resizes them, so both read the same pixels. The loaders' own resizes give the same
+    bits (``test_resize_within_one_of_cv2``); the CLIs are compared here, the resize above."""
     import cv2
 
     root = str(tmp_path_factory.mktemp("nusc_full_res"))
