@@ -181,6 +181,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
             where cv2 is absent), and a frame that 846,720 planted Gaussians
             cover, held to the same renderer on the CPU and timed with the JAX
             package's 4,096-Gaussian blocks too.
+21. serve    the serving side and the remaining entry points at full width, phase
+            20's nested-giant-large API in the backend's model slot, offline:
+            (a) ``create_server(ModelManager(..., device="cuda"))`` on a free
+            port in a thread; POST /inference with the six
+            ``assets/bench_sample`` images (process_res 504, ``infer_gs``,
+            mini_npz-glb-depth_vis-gs_ply), /status polled every 10 ms; one
+            warm-up and three timed requests (POST to done), the worker's
+            ``inference`` and ``save_scene`` timed apart, the same call in
+            process; every exported file and ``scene.npz`` (846,720
+            Gaussians) read back, 64 flash launches a request at phase 20a's
+            shapes, no fp32 launch; (b) the web app on that scene (meta,
+            points, depth PNG, view JPEG, measure), /device-memory on
+            ``cuda``, the 3DGS video rendered on the card and read back (or
+            its cv2 error), the gallery server on the backend's work dir and
+            ``InferenceService`` against the server; (c) ``python -m
+            recondet3d_torch.cli.inference_nuscenes`` at its defaults on phase
+            19's six-view fixture (exit 0, the PCD read back, valid points a
+            stage), then the CLI's own point stage (``fuse_views``,
+            ``pad_points``, its three transforms through ``PointPipeline``)
+            on ``anchor_depth`` of the six rig cameras at 280x504: valid
+            points and ms a stage, and its two FPS launches held to the plain
+            version's index sequence; (d) ``inference_mmdet3d`` on phase 19's
+            checkpoint and fixture (exit 0, the PCD read back, flash and FPS
+            launches counted at checked shapes); (e) ``check_model_memory`` on
+            the detection config: its TOTAL equal to phase 16's model's, and
+            a device memory line keyed ``cuda:0``.
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
@@ -208,13 +234,18 @@ import importlib
 import importlib.util
 import io
 import json
+import logging
 import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
+import urllib.error
+import urllib.request
 from collections import defaultdict
 
 import numpy as np
@@ -224,17 +255,20 @@ import torch.nn.functional as F
 from recondet3d_torch.api import DepthAnything3
 from recondet3d_torch.data.anchor_scene import anchor_depth, rig_cam2lidar
 from recondet3d_torch.data.export import export as da3_export
+from recondet3d_torch.data.export import read_pcd
 from recondet3d_torch.data.export.colmap_io import read_cameras_bin, read_images_bin
 from recondet3d_torch.data.export.pointcloud_io import read_ply
 from recondet3d_torch.data.input_processor import compute_process_shape, process_tensor_batch
 from recondet3d_torch.cli import create_data as cli_create_data
+from recondet3d_torch.cli import inference_nuscenes as cli_nusc
+from recondet3d_torch.cli.check_model_memory import component_table
 from recondet3d_torch.cli import test as cli_test
 from recondet3d_torch.cli import train as cli_train
 from recondet3d_torch.cli.train import build_model_from_cfg
 from recondet3d_torch.core.config import load_py_config
 from recondet3d_torch.data.image_io import imread_rgb, resize_bilinear, write_png, write_ppm
 from recondet3d_torch.data.pipelines.point_pipeline import (ball_query_downsample, filter_point_by_range,
-                                                            voxel_pre_reduce)
+                                                            voxel_pre_reduce, PointPipeline)
 from recondet3d_torch.models.da3 import CameraEnc, build_da3
 from recondet3d_torch.models.da3 import gs_renderer
 from recondet3d_torch.models.da3.gs_renderer import render_3dgs, render_trajectory_frames
@@ -268,7 +302,7 @@ from recondet3d_torch.tools.ptxas_spills import kernel_label
 from recondet3d_torch.utils import stage_timer
 from recondet3d_torch.train import Trainer
 from recondet3d_torch.train import checkpoints as ckpt_io
-from recondet3d_torch.specs import Gaussians
+from recondet3d_torch.specs import Gaussians, Prediction
 from recondet3d_torch.utils.camera_traj import interpolate_camera_path
 from recondet3d_torch.utils.pose_align import align_poses_umeyama
 from recondet3d_torch.utils.geometry import depth_to_points_cam
@@ -426,6 +460,24 @@ TRAJ_FRAMES = 30  # export_to_gs_video's path
 PLANTED_K = np.array([[500.0, 0, 252], [0, 500.0, 140], [0, 0, 1]], np.float32)
 PLANTED_MIN_COVERED = 0.99  # the share of pixels the frame must cover (alpha > 0)
 RENDER_TOL = 1e-4  # card vs CPU: rgb and alpha absolute, depth relative to max(1, |depth|)
+
+# phase 21, the serving side: the backend's requests (the six bench images, as an HTTP user sends them), the status
+# poll, the web app's 3DGS video; the CLIs run in subprocesses, through CLI_COUNTING where their launches are counted
+SERVE_IMAGES = [f"assets/bench_sample/cam{i}.jpg" for i in range(S)]
+SERVE_FORMATS = "mini_npz-glb-depth_vis-gs_ply"
+SERVE_REQUESTS = 3
+SERVE_POLL_S = 0.01
+SERVE_TIMEOUT_S = 300
+SERVE_VIDEO_FRAMES = 8  # posted; the web app's default trajectory (interpolate) renders TRAJ_FRAMES, as the JAX app
+CLI_COUNTING = """import importlib, json, sys
+from recondet3d_torch.ops.attention import flash_attention_fwd
+from recondet3d_torch.ops.fps import furthest_point_sample_cuda
+rc = importlib.import_module(sys.argv[1]).main(sys.argv[2:])
+print("LAUNCHES " + json.dumps(dict(
+    flash={str(k): n for k, n in flash_attention_fwd.launches_by_shape.items()},
+    fps={str(k): n for k, n in furthest_point_sample_cuda.launches_by_shape.items()})), flush=True)
+sys.exit(rc or 0)
+"""
 
 
 START = time.perf_counter()
@@ -1746,6 +1798,8 @@ def detection_phase(c2l, depth, fps_case_of, case_of, fwd_case_of):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     head, bk = det.pts_bbox_head, det.reconstruction_backbone
+    table, _ = component_table(det)  # check_model_memory's table of this model (phase 21 (e) holds its TOTAL)
+    param_table_total = sum(n for n, _ in table.values())
     if len(head.branches) != DET_TASKS or bk.voxel_pre_reduce != 0.0 or head.shared_conv.in_channels != 256:
         fail(f"detection: the config built {len(head.branches)} tasks, pre-reduce {bk.voxel_pre_reduce}, "
              f"head input {head.shared_conv.in_channels}")
@@ -1784,7 +1838,8 @@ def detection_phase(c2l, depth, fps_case_of, case_of, fwd_case_of):
                {k: [int(c) for c in v] for k, v in bk.last_stage_counts.items()},
                fps_launches_by_size={str(k): n for k, n in fps_by_shape.items()},
                flash_launches_per_request=sum(flash_by_shape.values()) / REQUESTS,
-               heatmap_max=max(float(torch.sigmoid(p["heatmap"]).max()) for p in preds))
+               heatmap_max=max(float(torch.sigmoid(p["heatmap"]).max()) for p in preds),
+               params=sum(p.numel() for p in det.parameters()), param_table_total=param_table_total)
     emit("detection", **res)
     if not shapes_ok or not boxes_ok:
         fail(f"detection: predictions of the wrong shape or non-finite ({shapes_ok}, {boxes_ok})")
@@ -2045,13 +2100,15 @@ def loop_launches():
                 fps=dict(fps_ops.furthest_point_sample_cuda.launches_by_shape))
 
 
-def run_full_loop(phase, config, n_cams, steps, train_args, train_inner, profile_batch=None, jax_seed=None):
+def run_full_loop(phase, config, n_cams, steps, train_args, train_inner, profile_batch=None, jax_seed=None,
+                  keep=False):
     """The loop through the port's entry points, in this process (so that the
     kernels' launch counts are read): the fixture, ``create_data``,
     ``cli.train.main`` for ``steps`` steps on the card, ``cli.test.main`` on
     its last checkpoint; the CLIs' output is kept and parsed. Counts are set
     to 0 just before each CLI and read just after. The work dir and fixture
-    live in a temporary directory that is removed afterwards. With
+    live in a temporary directory that is removed afterwards (with ``keep``
+    it stays, named under the result's ``kept``: the caller removes it). With
     ``jax_seed`` the run starts from the JAX package's initial weights of
     that seed (``tests/jax_init.py``: a step-0 checkpoint the CLI resumes
     from)."""
@@ -2122,7 +2179,8 @@ def run_full_loop(phase, config, n_cams, steps, train_args, train_inner, profile
     finally:
         built.clear()
         torch.cuda.empty_cache()
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(tmp, ignore_errors=True)
     steps_logged = [{k: float(v) for k, v in re.findall(r"(\S+)=(\S+)", line)}
                     for line in re.findall(r"^step \d+: (.*)$", train_out, re.M)]
     metrics = {m.group(1): float(m.group(2)) for m in re.finditer(r"pts_bbox_NuScenes/(\S+): ([0-9.naif-]+)", test_out)}
@@ -2140,7 +2198,8 @@ def run_full_loop(phase, config, n_cams, steps, train_args, train_inner, profile
                 boxes_per_sample=boxes, valid_counts_last_step=train_counts, valid_counts_last_sample=test_counts,
                 launches=dict(train={k: {str(s): n for s, n in v.items()} for k, v in train_launches.items()},
                               test={k: {str(s): n for s, n in v.items()} for k, v in test_launches.items()}),
-                train_tail=train_out[-1500:], test_tail=test_out[-1500:]), train_launches, test_launches
+                train_tail=train_out[-1500:], test_tail=test_out[-1500:],
+                kept=dict(dir=tmp, root=root, ann=ann, checkpoint=ckpt) if keep else None), train_launches, test_launches
 
 
 def check_loop_launches(phase, launches, fwd_expected, fps_expected, fwd_case_of, fps_case_of):
@@ -2223,9 +2282,10 @@ def full_loop_tiny_phase(exchange_us):
 def full_loop_full_width_phase(fwd_case_of, fps_case_of):
     """Phase 19: the production detection config (nested-giant-large, no pre-reduce, six tasks) through the same
     CLIs on a six-view fixture: FULL_LOOP_STEPS steps with only the final checkpoint, then the test CLI on it.
-    Random DA3 weights (the repository holds no checkpoint): gates on running, not on quality."""
+    Random DA3 weights (the repository holds no checkpoint): gates on running, not on quality. The fixture and the
+    checkpoint stay for phase 21 (``res["kept"]``), which removes them."""
     res, tr, te = run_full_loop("full_loop_full_width", DET_CONFIG, S, FULL_LOOP_STEPS,
-                                ["--checkpoint-interval", "0"], "data.train.dataset", profile_batch=1)
+                                ["--checkpoint-interval", "0"], "data.train.dataset", profile_batch=1, keep=True)
     emit("full_loop_full_width", **res)
     if res["rc_train"] != 0 or res["rc_test"] != 0:
         fail(f"full loop (full width): exit codes train {res['rc_train']} test {res['rc_test']}")
@@ -2717,6 +2777,421 @@ def da3_api_phase(smi, fwd_case_of):
     res["launches"] = sum(launches.values())
     res["f32_launches"] = sum(f32_launches.values())
     res["f32_case"] = f32_b1
+    res["api"] = api  # phase 21 serves it
+    return res
+
+
+def http_get(url, timeout=120):
+    """(status, body bytes) of a GET; an HTTP error's status and body too."""
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_json(url, payload=None, timeout=120):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+class TimedCalls:
+    """Wraps ``fn``: the ms of every call (synchronised after it)."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+
+def serve_request(url, payload):
+    """POST /inference, poll /status every SERVE_POLL_S: (final status, ms from the POST to done or failed)."""
+    t0 = time.perf_counter()
+    code, task = http_json(url + "/inference", payload)
+    if code != 200:
+        fail(f"serve (a): POST /inference answered {code}: {task}")
+    while True:
+        _, status = http_json(f"{url}/status/{task['task_id']}")
+        if status["status"] in ("done", "failed"):
+            return status, 1e3 * (time.perf_counter() - t0)
+        if time.perf_counter() - t0 > SERVE_TIMEOUT_S:
+            fail(f"serve (a): task {task['task_id']} not done after {SERVE_TIMEOUT_S} s: {status}")
+        time.sleep(SERVE_POLL_S)
+
+
+def check_served_exports(d):
+    """Every file of a served request read back: (summary, scene.npz Gaussians)."""
+    want = sorted(["prediction_mini.npz", "scene.glb", "gaussians.ply", "scene.npz"]
+                  + [f"depth_{i:03d}.png" for i in range(S)])
+    files = sorted(os.listdir(d))
+    gltf, n_bin = read_glb(os.path.join(d, "scene.glb"))
+    modes = [p["mode"] for m in gltf["meshes"] for p in m["primitives"]]
+    mini = np.load(os.path.join(d, "prediction_mini.npz"))
+    ply = read_ply(os.path.join(d, "gaussians.ply"))
+    depth_vis = [imread_rgb(os.path.join(d, f"depth_{i:03d}.png")).shape for i in range(S)]
+    with np.load(os.path.join(d, "scene.npz")) as z:
+        scene = {k: (z[k].shape, str(z[k].dtype)) for k in z.files}
+    res = dict(files=files, glb_points=sum(gltf["accessors"][m["primitives"][0]["attributes"]["POSITION"]]["count"]
+                                           for m in gltf["meshes"] if m["primitives"][0]["mode"] == 0),
+               glb_frusta=modes.count(1), glb_bin_bytes=n_bin, ply_vertices=len(ply["x"]),
+               mini_npz={k: list(mini[k].shape) for k in mini.files}, depth_vis=[list(s) for s in depth_vis[:1]],
+               scene_npz={k: [list(s), t] for k, s, t in ((k, *v) for k, v in scene.items())},
+               scene_npz_bytes=os.path.getsize(os.path.join(d, "scene.npz")))
+    ok = (files == want and modes.count(1) == S and set(modes) <= {0, 1} and len(ply["x"]) == API_GAUSSIANS
+          and mini["depth"].shape == (S, 280, 504) and {"depth", "conf", "extrinsics", "intrinsics"} <= set(mini.files)
+          and all(s == (280, 504, 3) for s in depth_vis)
+          and scene.get("gs_means", ((),))[0] == (1, API_GAUSSIANS, 3)
+          and scene.get("depth", ((),))[0] == (S, 280, 504))
+    if not ok:
+        fail(f"serve (a): the served exports read back wrong: {res}")
+    return res
+
+
+def start_cli(what, module, args, work, counted=False):
+    """Start ``python -m module args`` (or, with ``counted``, the module's
+    ``main`` through CLI_COUNTING, which prints the kernels' launch counts
+    after it) from the checkout's root, offline, its output to files in
+    ``work``; ``finish_cli`` waits for it."""
+    env = dict(os.environ, HF_HUB_OFFLINE="1")
+    cmd = [sys.executable, "-c", CLI_COUNTING, module] if counted else [sys.executable, "-m", module]
+    out, err = (open(os.path.join(work, f"cli_{what}.{kind}"), "w+") for kind in ("out", "err"))
+    proc = subprocess.Popen(cmd + list(args), cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=out,
+                            stderr=err, text=True)
+    return dict(what=what, module=module, proc=proc, out=out, err=err, t0=time.perf_counter())
+
+
+def finish_cli(run, timeout=900):
+    """(result, stdout, stderr, launches or None) of a ``start_cli`` process;
+    fails unless it exits 0."""
+    try:
+        rc = run["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        run["proc"].wait()
+        rc = "timeout"
+    seconds = time.perf_counter() - run["t0"]
+    stdout, stderr = [(f.seek(0), f.read(), f.close())[1] for f in (run["out"], run["err"])]
+    res = dict(rc=rc, s=seconds, stdout_tail=stdout[-600:], stderr_tail=stderr[-600:])
+    if rc != 0:
+        fail(f"serve ({run['what']}): {run['module']} exited {rc}: {stderr[-3000:]}")
+    launches = None
+    if "-c" in run["proc"].args:
+        line = [l for l in stdout.splitlines() if l.startswith("LAUNCHES ")]
+        launches = json.loads(line[-1][len("LAUNCHES "):]) if line else None
+    return res, stdout, stderr, launches
+
+
+def cli_anchored_point_stage(args, exchange_us, smi):
+    """(c): the CLI's point stage on the anchored scene: the unprojection of
+    ``anchor_depth`` for the six rig cameras at 280x504 (``fuse_views``), the
+    CLI's padding and three transforms, each through ``PointPipeline``;
+    valid counts and ms a stage, and the two FPS launches held to the plain
+    version's index sequence."""
+    rig = {"CAM_FRONT": 0, "CAM_FRONT_LEFT": 1, "CAM_FRONT_RIGHT": 2, "CAM_BACK": 3, "CAM_BACK_LEFT": 4,
+           "CAM_BACK_RIGHT": 5}
+    c2l = rig_cam2lidar(1)
+    depth = anchor_depth(np.load(REFERENCE_POINTS)["points"], c2l, 280, 504)[0]
+    order = [rig[c] for c in cli_nusc.CAM_TYPES]
+    K = np.array([[1266.0 * 504 / 1600, 0, 252.0], [0, 1266.0 * 280 / 900, 140.0], [0, 0, 1]], np.float32)
+    pred = Prediction(depth=depth[order], intrinsics=np.tile(K, (S, 1, 1)))
+    cam_infos = {c: dict(sensor2lidar_rotation=c2l[0, rig[c], :3, :3], sensor2lidar_translation=c2l[0, rig[c], 3, :3])
+                 for c in cli_nusc.CAM_TYPES}
+    t0 = time.perf_counter()
+    cloud = cli_nusc.fuse_views(pred, cam_infos, args)
+    buf, valid, cap = cli_nusc.pad_points(cloud)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    transforms = cli_nusc.point_transforms(args, cap)
+
+    def run():
+        p, m = torch.from_numpy(buf).cuda(), torch.from_numpy(valid).cuda()
+        inputs, stages = [], []
+        for t in transforms:
+            inputs.append((p, m))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, m = PointPipeline([t])(p, m)
+            torch.cuda.synchronize()
+            stages.append(dict(type=t["type"], rows_out=int(p.shape[0]), valid=int(m.sum()),
+                               ms=1e3 * (time.perf_counter() - t0)))
+        return inputs, stages, (p, m)
+
+    run()  # warm-up
+    fps_ops.reset_launch_counts()
+    inputs, stages, (out, msk) = run()
+    launches = dict(fps_ops.furthest_point_sample_cuda.launches_by_shape)
+    n_vox = min(cap, 1 << 18)
+    expected = {(n_vox, args.anchor_points): 1, (n_vox, args.num_points): 1}
+    res = dict(views=S, hw=[280, 504], pixels=S * 280 * 504, fused=len(cloud), padded_rows=cap, host_ms=host_ms,
+               stages=stages, fps_launches={str(k): n for k, n in launches.items()},
+               out_finite=bool(torch.isfinite(out[msk]).all()), nvidia_smi=smi)
+    emit("serve_cli_point_stage", **res)
+    if launches != expected or not res["out_finite"] or stages[-1]["valid"] != min(args.num_points,
+                                                                                  stages[1]["valid"]):
+        fail(f"serve (c): the CLI's point stage on the anchored cloud: {res} (expected FPS launches {expected})")
+    cases = [fps_case(name, inputs[i][0][:, :3], inputs[i][1], k, None, exchange_us, True)
+             for name, i, k in (("nusc_cli_anchors", 1, args.anchor_points), ("nusc_cli_final", 2, args.num_points))]
+    res["fps_cases"] = [{k: v for k, v in c.items() if k != "kernel_args"} for c in cases]
+    return res
+
+
+def anchored_scene(workdir, tid):
+    """A copy of task ``tid``'s scene beside it, with the anchored scene's
+    depth (``anchor_depth`` of the six rig cameras at 280x504), the rig's
+    cameras, confidence 1 and no sky; its images kept. Returns its id."""
+    from recondet3d_torch.serve import scene_store
+
+    c2l = rig_cam2lidar(1)
+    depth = anchor_depth(np.load(REFERENCE_POINTS)["points"], c2l, 280, 504)[0]
+    K = np.array([[1266.0 * 504 / 1600, 0, 252.0], [0, 1266.0 * 280 / 900, 140.0], [0, 0, 1]], np.float32)
+    w2c = np.zeros((S, 3, 4), np.float32)  # p_lidar = p_cam @ R.T + t  ->  w2c = [R.T | -R.T t]
+    for i in range(S):
+        R, t = c2l[0, i, :3, :3], c2l[0, i, 3, :3]
+        w2c[i, :, :3], w2c[i, :, 3] = R.T, -R.T @ t
+    with np.load(os.path.join(workdir, "tasks", tid, "scene.npz")) as z:
+        images = z["images"]
+    scene_id = f"{tid}_anchored"
+    scene_store.save_scene(os.path.join(workdir, "tasks", scene_id), Prediction(
+        depth=depth, conf=np.ones_like(depth), sky=np.zeros(depth.shape, bool), extrinsics=w2c,
+        intrinsics=np.tile(K, (S, 1, 1)), processed_images=images))
+    return scene_id
+
+
+def serve_phase(api, smi, fwd_case_of, det_fps_case_of, exchange_us, kept, det_param_total):
+    """Phase 21: the serving side and the remaining entry points at full width (see the module docstring)."""
+    from recondet3d_torch.serve import scene_store
+    from recondet3d_torch.serve.backend import ModelManager, create_server
+    from recondet3d_torch.serve.gallery import create_gallery_server
+    from recondet3d_torch.serve.inference_service import InferenceService
+
+    t_start = time.perf_counter()
+    # requests to this host's servers go straight there, whatever proxy the environment names
+    urllib.request.install_opener(urllib.request.build_opener(urllib.request.ProxyHandler({})))
+    serve_log = logging.getLogger("recondet3d_torch.serve")
+    log_level = serve_log.level
+    serve_log.setLevel(logging.WARNING)  # not a line for every 10 ms poll
+    work = tempfile.mkdtemp(prefix="serve_")
+    paths = [os.path.abspath(p) for p in SERVE_IMAGES]
+    payload = dict(images=paths, process_res=504, infer_gs=True, export_format=SERVE_FORMATS)
+    res = {}
+    servers = []
+    saved_save_scene = scene_store.save_scene
+    try:
+        # (a) the backend on the card, the nested-giant-large API of phase 20 in its model slot
+        manager = ModelManager(API_MODEL, cache_dir=os.path.join(work, "empty_cache"),
+                               workdir=os.path.join(work, "backend"), device="cuda")
+        timed_api = types.SimpleNamespace(inference=TimedCalls(api.inference))  # the model slot, its calls timed
+        manager._model = timed_api
+        save_timer = TimedCalls(saved_save_scene)
+        scene_store.save_scene = save_timer
+        manager.start()
+        server = create_server(manager, "127.0.0.1", 0)
+        servers.append((server, manager))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        serve_request(url, payload)  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        timed_api.inference.ms.clear()
+        save_timer.ms.clear()
+        http_ms, statuses = [], []
+        for _ in range(SERVE_REQUESTS):
+            status, ms = serve_request(url, payload)
+            statuses.append(status)
+            http_ms.append(ms)
+        launches = d64_launches(flash_attention_fwd, "serve (a)")
+        f32 = dict(tiled=attention_fwd_cuda_core.launches, short=attention_fwd_short.launches)
+        per_request = {name: launches.get(shape, 0) / SERVE_REQUESTS for name, shape in API_SHAPES.items()}
+        failed = [s for s in statuses if s["status"] != "done" or s["result"]["num_views"] != S]
+        if failed:
+            fail(f"serve (a): requests not done with {S} views: {failed[0]}")
+        status = statuses[-1]
+        files = check_served_exports(status["result"]["export_dir"])
+        api_ms = []
+        for r in range(SERVE_REQUESTS):  # the same call in process
+            t0 = time.perf_counter()
+            api.inference(paths, process_res=504, infer_gs=True, export_format=SERVE_FORMATS,
+                          export_dir=os.path.join(work, f"in_process_{r}"))
+            api_ms.append(1e3 * (time.perf_counter() - t0))
+        med = lambda v: float(np.median(v))  # noqa: E731
+        res["a"] = dict(
+            model=API_MODEL, views=S, image=[IMG_H, IMG_W], process_res=504, formats=SERVE_FORMATS,
+            requests=SERVE_REQUESTS, poll_s=SERVE_POLL_S, http_ms=http_ms, http_ms_median=med(http_ms),
+            worker_inference_ms=timed_api.inference.ms, worker_save_scene_ms=save_timer.ms, api_in_process_ms=api_ms,
+            api_in_process_ms_median=med(api_ms),
+            http_minus_api_ms=med(http_ms) - med(api_ms),
+            http_minus_worker_ms=[h - i - w for h, i, w in zip(http_ms, timed_api.inference.ms, save_timer.ms)],
+            save_scene_share_of_http=med(save_timer.ms) / med(http_ms),
+            flash_launches_by_shape={str(k): n for k, n in launches.items()}, flash_launches_per_request=per_request,
+            f32_launches=f32, exports=files, nvidia_smi=smi)
+        emit("serve_backend", **res["a"])
+        unchecked = [shape for shape in launches if shape not in fwd_case_of]
+        if unchecked or per_request != EXPECTED_PER_FORWARD or f32["tiled"] or f32["short"]:
+            fail(f"serve (a): flash launches {launches} a request {per_request} (expected {EXPECTED_PER_FORWARD}), "
+                 f"unchecked shapes {unchecked}, fp32 launches {f32}")
+
+        # (b) the web app on that scene, the device memory, the 3DGS video, the gallery and the client
+        tid = status["id"]
+        _, meta = http_json(f"{url}/scene/{tid}/meta")
+        # the viewer's points: the random net's depths lie past the stream's 200 m cut (tens of km), so that
+        # scene's stream is held to the store's own answer, and a copy of it with the anchored scene's depth,
+        # cameras and no sky (anchored_scene) gives the stream its geometry
+        streams = {}
+        for name, scene_id in (("served", tid), ("anchored", anchored_scene(manager.workdir, tid))):
+            code, body = http_get(f"{url}/scene/{scene_id}/points.bin?max=200000&sky=0")
+            own = scene_store.scene_points_bin(scene_store.load_scene(os.path.join(manager.workdir, "tasks",
+                                                                                   scene_id)), max_points=200000,
+                                               filter_sky=False)
+            streams[name] = (code, np.frombuffer(body, "<f4").reshape(-1, 6) if code == 200 else None, body == own)
+        pts = streams["anchored"][1]
+        pictures = {ep: http_get(f"{url}/scene/{tid}/{ep}") for ep in ("depth/0.png", "image/5.jpg")}
+        _, measure = http_json(f"{url}/scene/{tid}/measure?view=2&u=0.5&v=0.5")
+        _, mem = http_json(url + "/device-memory")
+        cv2_found = importlib.util.find_spec("cv2") is not None
+        res["b"] = dict(meta_views=meta.get("num_views"), frusta=len(meta.get("frusta", [])), has_gs=meta.get("has_gs"),
+                        points={name: [c, None if p is None else len(p), same] for name, (c, p, same) in streams.items()},
+                        points_finite=pts is not None and bool(np.isfinite(pts).all()),
+                        pictures={ep: [c, b[:4].hex()] for ep, (c, b) in pictures.items()}, measure=measure,
+                        device_memory=mem, cv2=cv2_found)
+        magic = {"depth/0.png": b"\x89PNG", "image/5.jpg": b"\xff\xd8"}
+        pictures_ok = all((c == 200 and b.startswith(magic[ep])) if cv2_found else (c == 500 and b"cv2" in b)
+                          for ep, (c, b) in pictures.items())
+        if not (meta.get("num_views") == S and len(meta.get("frusta", [])) == S and meta.get("has_gs")
+                and all(c == 200 and same for c, _, same in streams.values()) and 0 < len(pts) <= 200000
+                and res["b"]["points_finite"] and pictures_ok
+                and measure.get("view") == 2 and "depth" in measure and mem.get("platform") == "cuda"
+                and mem.get("kind") == torch.cuda.get_device_name(0)
+                and 0 < (mem.get("bytes_in_use") or 0) <= (mem.get("bytes_limit") or 0)):
+            fail(f"serve (b): the web app's answers: {res['b']}")
+        seen, render = [], gs_renderer.render_3dgs
+        gs_renderer.render_3dgs = lambda *a, **kw: (lambda out: seen.append(str(out[0].device)) or out)(
+            render(*a, **kw))
+        try:
+            t0 = time.perf_counter()
+            code, video = http_json(f"{url}/scene/{tid}/gs_video", {"frames": SERVE_VIDEO_FRAMES})
+            video_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            gs_renderer.render_3dgs = render
+        res["b"]["gs_video"] = dict(status=code, answer=video, ms=video_ms, render_devices=seen,
+                                    frames=SERVE_VIDEO_FRAMES)
+        if cv2_found:
+            import cv2
+
+            mp4 = os.path.join(manager.workdir, "tasks", tid, "gs_video.mp4")
+            cap_ = cv2.VideoCapture(mp4)
+            read = []
+            while True:
+                ok, frame = cap_.read()
+                if not ok:
+                    break
+                read.append(frame.shape)
+            cap_.release()
+            res["b"]["gs_video"].update(frames_read=len(read), frame_shape=list(read[0]) if read else None)
+            if not (code == 200 and seen and all(d.startswith("cuda") for d in seen)
+                    and len(read) == TRAJ_FRAMES and read[0][:2] == (140, 252)):
+                fail(f"serve (b): gs_video {res['b']['gs_video']}")
+        elif not (code == 500 and "cv2" in video.get("error", "")):
+            fail(f"serve (b): gs_video without cv2 answered {code}: {video}")
+        gallery = create_gallery_server(manager.workdir, "127.0.0.1", 0)
+        servers.append((gallery, None))
+        threading.Thread(target=gallery.serve_forever, daemon=True).start()
+        g_url = f"http://127.0.0.1:{gallery.server_address[1]}"
+        _, groups = http_json(g_url + "/manifest.json")
+        _, items = http_json(g_url + "/manifest/tasks.json")
+        listed = [e["id"] for e in items.get("items", [])]
+        res["b"]["gallery"] = dict(groups=groups.get("groups"), scenes=len(listed), lists_task=tid in listed)
+        t0 = time.perf_counter()
+        client = InferenceService(API_MODEL, backend_url=url).run_inference(
+            paths, process_res=504, export_format="mini_npz", poll_interval=SERVE_POLL_S)
+        res["b"]["inference_service"] = dict(ms=1e3 * (time.perf_counter() - t0), num_views=client["num_views"])
+        emit("serve_webapp", **res["b"])
+        if tid not in listed or client["num_views"] != S:
+            fail(f"serve (b): gallery {res['b']['gallery']}, client {res['b']['inference_service']}")
+    finally:
+        scene_store.save_scene = saved_save_scene
+        serve_log.setLevel(log_level)
+        for srv, mgr in servers:
+            srv.shutdown()
+            srv.server_close()
+            if mgr is not None:
+                mgr.stop()
+    torch.cuda.empty_cache()
+    clis = []
+    try:
+        # (c), (d) and (e): the three CLIs in subprocesses at once (each builds the nested-giant-large model on the
+        # card; their wall times overlap, none of them is timed against another number)
+        nusc_out, mmdet_out = os.path.join(work, "nusc_out"), os.path.join(work, "mmdet3d_out")
+        clis = [start_cli("c", "recondet3d_torch.cli.inference_nuscenes",
+                          ["--dataroot", kept["root"], "--max-samples", "1", "--out-dir", nusc_out,
+                           "--cache-dir", os.path.join(work, "empty_cache")], work),
+                start_cli("d", "recondet3d_torch.cli.inference_mmdet3d",
+                          ["--config", DET_CONFIG, "--checkpoint", kept["checkpoint"], "--max-samples", "1",
+                           "--out-dir", mmdet_out, "--cfg-options", f"data.test.ann_file={kept['ann']}",
+                           f"data.test.data_root={kept['root']}"], work, counted=True),
+                start_cli("e", "recondet3d_torch.cli.check_model_memory", [DET_CONFIG], work)]
+
+        # (c) inference_nuscenes at its defaults on phase 19's six-view fixture, then its point stage on the
+        # anchored scene
+        run, _, stderr, _ = finish_cli(clis[0])
+        pcd = os.path.join(nusc_out, "sample_0_points.pcd")
+        pcd_pts, _ = read_pcd(pcd) if os.path.isfile(pcd) else (None, None)
+        counts = re.findall(r"valid points: .*", stderr)
+        res["c"] = dict(cli=run, pcd_points=None if pcd_pts is None else len(pcd_pts),
+                        valid_counts=counts[-1] if counts else None)
+        print(f"chip_smoke: inference_nuscenes: {res['c']['valid_counts']}", flush=True)
+        if pcd_pts is None or not np.isfinite(pcd_pts).all():
+            fail(f"serve (c): no PCD read back from {nusc_out}: {run}")
+        emit("serve_inference_nuscenes", **res["c"])
+
+        # (d) inference_mmdet3d on phase 19's full-width checkpoint and fixture, one sample
+        run, _, _, launches = finish_cli(clis[1])
+        pcd = os.path.join(mmdet_out, "batch_0_pred_0_points.pcd")
+        pcd_pts, _ = read_pcd(pcd) if os.path.isfile(pcd) else (None, None)
+        fwd_expected = {str(TRAIN_FWD_SHAPES[n] + (64,)): c
+                        for n, c in (("vitg_local_b1", 26), ("vitg_global_b1", 14), ("vitl_local_b1", 24))}
+        fps_expected = {str((NO_PRE_REDUCE_ROWS, ANCHORS)): 1, str((UNION_CAP_NO_PRE_REDUCE, NUM_POINTS)): 1}
+        checked = {str(k + (64,)) for k in fwd_case_of} | {str(k) for k in det_fps_case_of}
+        res["d"] = dict(cli=run, checkpoint_bytes=os.path.getsize(kept["checkpoint"]),
+                        pcd_points=None if pcd_pts is None else len(pcd_pts), launches=launches)
+        emit("serve_inference_mmdet3d", **res["d"])
+        if pcd_pts is None or launches is None or launches["flash"] != fwd_expected or launches["fps"] != fps_expected \
+                or not set(launches["flash"]) | set(launches["fps"]) <= checked:
+            fail(f"serve (d): PCD {res['d']['pcd_points']}, launches {launches} (expected flash {fwd_expected}, "
+                 f"fps {fps_expected}, each at a checked shape)")
+
+        # (e) check_model_memory on the detection config: its TOTAL is phase 16's model's table total
+        run, stdout, _, _ = finish_cli(clis[2])
+        total = re.findall(r"^TOTAL\s+([\d,]+)", stdout, re.M)
+        mem_lines = [l for l in stdout.splitlines() if l.startswith("cuda:0 {")]
+        res["e"] = dict(cli=run, total=int(total[0].replace(",", "")) if total else None,
+                        phase16_total=det_param_total, device_memory=mem_lines[0] if mem_lines else None,
+                        table=stdout[:2000])
+        emit("serve_check_model_memory", **{k: v for k, v in res["e"].items() if k != "table"})
+        if res["e"]["total"] != det_param_total or not mem_lines:
+            fail(f"serve (e): TOTAL {res['e']['total']} (phase 16's model: {det_param_total}), device memory line "
+                 f"{mem_lines}")
+
+        # (c) the CLI's point stage on the anchored scene, the CLIs done
+        res["c"]["anchored"] = cli_anchored_point_stage(cli_nusc.parse_args(["--dataroot", kept["root"]]),
+                                                        exchange_us, smi)
+    finally:
+        for run in clis:  # nothing outlives the phase
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(kept["dir"], ignore_errors=True)
+    res["t_s"] = time.perf_counter() - t_start
+    emit("serve_done", phase_s=res["t_s"])
     return res
 
 
@@ -3151,6 +3626,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # 20. the DA3 public API and the da3 CLI at full width
     api_res = da3_api_phase(smi, dict(fwd_case_of))
+    # 21. the serving side and the remaining entry points, phase 20's API in the backend's model slot
+    serve_res = serve_phase(api_res.pop("api"), smi, dict(fwd_case_of), det_fps_case_of, exchange_us,
+                            loop_full.pop("kept"), det_res["param_table_total"])
+    torch.cuda.empty_cache()
     # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
@@ -3379,6 +3858,18 @@ def main(argv=None):
         launches_da3_api=api_res["launches"], da3_api_per=f"{API_CALLS} API calls of 6 views (phase 20a)",
         da3_api_shapes=api_long,
         max_abs_err=max(table["kernels"][0]["max_abs_err"], max(c["max_abs_err"] for c in api_long)))
+    # phase 21: the served requests, the CLIs' launches, and the FPS kernel at inference_nuscenes's shapes
+    cli_fps = serve_res["c"]["anchored"]["fps_cases"]
+    table["kernels"][0].update(
+        launches_serve=sum(serve_res["a"]["flash_launches_by_shape"].values()),
+        serve_per=f"{SERVE_REQUESTS} HTTP requests of 6 views (phase 21a)",
+        launches_inference_mmdet3d=sum(serve_res["d"]["launches"]["flash"].values()))
+    table["kernels"][1].update(
+        launches_inference_nuscenes_point_stage=sum(int(n) for n in
+                                                    serve_res["c"]["anchored"]["fps_launches"].values()),
+        launches_inference_mmdet3d=sum(serve_res["d"]["launches"]["fps"].values()), cli_nuscenes_shapes=cli_fps,
+        max_abs_err=max(table["kernels"][1]["max_abs_err"], max(c["max_abs_err"] for c in cli_fps)))
+    table["serve"] = serve_res
     short_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_short_fwd")
     short_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
                      max_abs_err=max(short_row["max_abs_err"], api_res["f32_case"]["errors"]["short"]["max_abs_err"]))

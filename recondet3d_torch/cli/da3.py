@@ -6,8 +6,12 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
     python -m recondet3d_torch.cli.da3 colmap <dir with sparse/ or cameras.bin> --device cpu
 
 ``video`` reads its frames with OpenCV (cv2) and raises without it, naming
-cv2. ``backend`` and ``gallery`` (the HTTP server and the result gallery)
-are not ported yet: they raise, naming ROADMAP §1 item 15b.
+cv2. ``backend`` serves the model over HTTP with its web app
+(``serve/backend.py``, the model on ``--device``), ``gallery`` the exported
+results (``serve/gallery.py``):
+
+    python -m recondet3d_torch.cli.da3 backend --model da3-small --device cpu --port 8000
+    python -m recondet3d_torch.cli.da3 gallery --root da3_backend --port 8100
 """
 
 from __future__ import annotations
@@ -149,15 +153,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     backend.add_argument("--host", default="127.0.0.1")
     backend.add_argument("--port", type=int, default=8000)
     backend.add_argument("--workdir", default="da3_backend")
+    backend.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     gallery = sub.add_parser("gallery")
     gallery.add_argument("--root", default="da3_backend")
     gallery.add_argument("--host", default="127.0.0.1")
     gallery.add_argument("--port", type=int, default=8100)
 
     args = parser.parse_args(argv)
-    if args.command in ("backend", "gallery"):
-        raise NotImplementedError(f"da3 {args.command}: the serving side (serve/*) is not ported yet "
-                                  "(ROADMAP §1 item 15b)")
+    if args.command == "backend":
+        from recondet3d_torch.serve.backend import start_server
+
+        start_server(model_name=args.model, cache_dir=args.cache_dir, host=args.host, port=args.port,
+                     workdir=args.workdir, device=args.device)
+        return 0
+    if args.command == "gallery":
+        from recondet3d_torch.serve.gallery import serve_gallery
+
+        serve_gallery(args.root, host=args.host, port=args.port)
+        return 0
 
     kind = args.command if args.command != "auto" else detect_input_type(args.input)
     if kind in ("image", "images"):

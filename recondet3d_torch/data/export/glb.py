@@ -33,7 +33,8 @@ def write_glb_pointcloud(
     extra_lines: Optional[List[Tuple[np.ndarray, np.ndarray]]] = None,
 ) -> None:
     """points (N, 3) float32; colors (N, 3) in [0,1]; extra_lines: list of
-    (vertices (M,3), segments (K,2) int) polylines (camera frusta)."""
+    (vertices (M,3), segments (K,2) int) polylines (camera frusta). With
+    N = 0 the file holds the polylines only."""
     points = np.asarray(points, np.float32)
     buffers = []
     accessors = []
@@ -60,19 +61,20 @@ def write_glb_pointcloud(
         accessors.append(acc)
         return len(accessors) - 1
 
-    # main point cloud
-    pview = add_view(points.tobytes(), target=34962)
-    pacc = add_accessor(
-        pview, 5126, len(points), "VEC3",
-        points.min(0).tolist(), points.max(0).tolist(),
-    )
-    attrs = {"POSITION": pacc}
-    if colors is not None:
-        c = np.clip(np.asarray(colors, np.float32), 0, 1)
-        cview = add_view(c.tobytes(), target=34962)
-        attrs["COLOR_0"] = add_accessor(cview, 5126, len(c), "VEC3")
-    meshes.append(dict(primitives=[dict(attributes=attrs, mode=0)]))  # POINTS
-    nodes.append(dict(mesh=0))
+    # main point cloud; none where the filters kept no point (glTF has no empty accessor): the cameras alone
+    if len(points):
+        pview = add_view(points.tobytes(), target=34962)
+        pacc = add_accessor(
+            pview, 5126, len(points), "VEC3",
+            points.min(0).tolist(), points.max(0).tolist(),
+        )
+        attrs = {"POSITION": pacc}
+        if colors is not None:
+            c = np.clip(np.asarray(colors, np.float32), 0, 1)
+            cview = add_view(c.tobytes(), target=34962)
+            attrs["COLOR_0"] = add_accessor(cview, 5126, len(c), "VEC3")
+        meshes.append(dict(primitives=[dict(attributes=attrs, mode=0)]))  # POINTS
+        nodes.append(dict(mesh=0))
 
     for verts, segs in extra_lines or []:
         verts = np.asarray(verts, np.float32)

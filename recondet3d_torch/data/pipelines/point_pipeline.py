@@ -10,7 +10,7 @@ reads a count back from the device. ``points`` may carry extra channels
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
@@ -18,6 +18,8 @@ import torch
 from recondet3d_torch.ops.ball_query import ball_query
 from recondet3d_torch.ops.cell_sort import cell_sort
 from recondet3d_torch.ops.sampling import furthest_point_sample
+from recondet3d_torch.ops.scatter import dynamic_scatter
+from recondet3d_torch.ops.voxelize import compute_grid_size, dynamic_voxelize
 from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = [
@@ -26,6 +28,8 @@ __all__ = [
     "voxel_pre_reduce",
     "ball_query_downsample",
     "fps_downsample",
+    "voxel_downsample",
+    "PointPipeline",
 ]
 
 
@@ -42,6 +46,16 @@ def compact_points(points, valid, out_size: int):
     """Stable-compact valid rows to the front, cut to ``out_size`` rows."""
     order = torch.sort((~valid).to(torch.uint8), stable=True).indices[:out_size]
     return points[order], valid[order]
+
+
+def _padded(points, valid, out_size: int):
+    """``compact_points`` to ``out_size`` rows, padded past N with invalid zero rows."""
+    pts, msk = compact_points(points, valid, out_size)
+    pad = out_size - pts.shape[0]
+    if pad > 0:
+        pts = torch.cat([pts, pts.new_zeros((pad,) + tuple(pts.shape[1:]))])
+        msk = torch.cat([msk, msk.new_zeros(pad)])
+    return pts, msk
 
 
 def voxel_pre_reduce(points, valid, *, voxel_size, point_cloud_range: Sequence[float], max_out: int):
@@ -62,7 +76,8 @@ def voxel_pre_reduce(points, valid, *, voxel_size, point_cloud_range: Sequence[f
     xyz = points[:, :3].float()
     finite = torch.isfinite(xyz).all(dim=1)
     xyz = torch.where(finite[:, None], xyz, torch.zeros_like(xyz))
-    c = torch.floor((xyz - torch.from_numpy(lo).to(dev)) / torch.from_numpy(vs.copy()).to(dev)).long()
+    # times the fp32 reciprocal, as XLA compiles the reference's division by a constant
+    c = torch.floor((xyz - torch.from_numpy(lo).to(dev)) * torch.from_numpy(1 / vs).to(dev)).long()
     limits = torch.tensor([gx, gy, gz], device=dev)
     ok = valid & finite & ((c >= 0) & (c < limits)).all(dim=1)
     ids = torch.where(ok, (c[:, 2] * gy + c[:, 1]) * gx + c[:, 0], torch.full_like(c[:, 0], ncell))
@@ -91,7 +106,8 @@ def ball_query_downsample(
 ):
     """Density-aware downsample: FPS anchors + the union of their ball-query
     neighbours, as a mask over the input. With ``n_valid <= anchor_points``
-    the input passes through unchanged.
+    the input passes through unchanged (a buffer of at most
+    ``anchor_points`` rows always does, without the FPS and the query).
 
     ``compact=True`` shrinks the buffer to the static bound
     ``anchor_points * (sample_num + 1)`` (rounded up to 128, at most N).
@@ -105,17 +121,20 @@ def ball_query_downsample(
     xyz = points[:, :3]
     with stage("cell_sort"):
         structure = cell_sort(xyz, valid, grid_dim=grid_dim, min_cell=max_radius) if share_sort else None
-    with stage("fps_anchors"):
-        anchor_idx = furthest_point_sample(xyz, anchor_points, valid, impl=fps_impl, presorted=structure)
-    with stage("ball_query"):
-        nbr = ball_query(min_radius, max_radius, sample_num, xyz, xyz[anchor_idx], points_valid=valid,
-                         grid_dim=grid_dim, structure=structure)
-    sel = torch.zeros(N, dtype=torch.bool, device=points.device)
-    sel[nbr.reshape(-1)] = True
-    sel[anchor_idx] = True
-    sel &= valid
-    passthrough = valid.sum() <= anchor_points
-    out_valid = torch.where(passthrough, valid, sel)
+    if N <= anchor_points:
+        out_valid = valid
+    else:
+        with stage("fps_anchors"):
+            anchor_idx = furthest_point_sample(xyz, anchor_points, valid, impl=fps_impl, presorted=structure)
+        with stage("ball_query"):
+            nbr = ball_query(min_radius, max_radius, sample_num, xyz, xyz[anchor_idx], points_valid=valid,
+                             grid_dim=grid_dim, structure=structure)
+        sel = torch.zeros(N, dtype=torch.bool, device=points.device)
+        sel[nbr.reshape(-1)] = True
+        sel[anchor_idx] = True
+        sel &= valid
+        passthrough = valid.sum() <= anchor_points
+        out_valid = torch.where(passthrough, valid, sel)
     if not compact:
         return points, out_valid
     cap = min(N, anchor_points * (sample_num + 1))
@@ -131,10 +150,13 @@ def ball_query_downsample(
 
 def fps_downsample(points, valid, *, num_points: int, input_spatially_sorted: bool = False,
                    fps_impl: str = "auto"):
-    """FPS cap to ``num_points`` rows (<= N) + mask; with ``n_valid <=
-    num_points`` the valid rows are compacted to the front instead.
-    ``input_spatially_sorted``: the rows already come in the order the
-    sampler should scan (ties then go to the lowest row)."""
+    """FPS cap to ``num_points`` rows + mask; with ``n_valid <= num_points``
+    the valid rows are compacted to the front instead (a buffer of at most
+    ``num_points`` rows always is, without an FPS call, padded with invalid
+    zero rows). ``input_spatially_sorted``: the rows already come in the
+    order the sampler should scan (ties then go to the lowest row)."""
+    if points.shape[0] <= num_points:
+        return _padded(points, valid, num_points)
     presorted = None
     if input_spatially_sorted:
         presorted = (points[:, :3].float(), valid, torch.arange(points.shape[0], device=points.device))
@@ -146,3 +168,47 @@ def fps_downsample(points, valid, *, num_points: int, input_spatially_sorted: bo
     out = torch.where(big, fps_pts, comp_pts)
     out_valid = torch.where(big, torch.ones_like(comp_valid), comp_valid)
     return out, out_valid
+
+
+def voxel_downsample(points, valid, *, voxel_size, point_cloud_range, max_voxels: int):
+    """Replace the points by their voxel centroids (the mean of every
+    channel): ``(max_voxels, C)`` rows in appearance order (a voxel ranks by
+    the first valid point in it), voxels past ``max_voxels`` dropped, and the
+    mask of the rows that hold a voxel."""
+    coors = dynamic_voxelize(points, point_cloud_range=tuple(point_cloud_range), voxel_size=tuple(voxel_size))
+    coors = torch.where(valid[:, None], coors, torch.full_like(coors, -1))
+    grid = compute_grid_size(point_cloud_range, voxel_size)
+    centroids, vcoors, _, _ = dynamic_scatter(points, coors, grid=grid, max_voxels=max_voxels, reduce="mean")
+    return centroids, vcoors[:, 0] >= 0
+
+
+class PointPipeline:
+    """Config-driven composition of the stages above: a list of dicts, each
+    with a ``type`` (FilterPointByRange, BallQueryDownsample, FPSDownsample,
+    VoxelDownsample) and that stage's keyword arguments; ``enabled`` is
+    ignored, an unknown type raises KeyError. ``last_counts`` holds the
+    valid count after each stage of the last call, as device tensors (read
+    without a wait once the output has reached the host)."""
+
+    def __init__(self, transforms: Sequence[Dict[str, Any]]):
+        self.transforms = list(transforms)
+        self.last_counts = []
+
+    def __call__(self, points, valid):
+        self.last_counts = []
+        for t in self.transforms:
+            cfg = dict(t)
+            kind = cfg.pop("type")
+            cfg.pop("enabled", None)
+            if kind == "FilterPointByRange":
+                points, valid = filter_point_by_range(points, valid, cfg["point_cloud_range"])
+            elif kind == "BallQueryDownsample":
+                points, valid = ball_query_downsample(points, valid, **cfg)
+            elif kind == "FPSDownsample":
+                points, valid = fps_downsample(points, valid, **cfg)
+            elif kind == "VoxelDownsample":
+                points, valid = voxel_downsample(points, valid, **cfg)
+            else:
+                raise KeyError(f"unknown point transform {kind!r}")
+            self.last_counts.append((kind, valid.sum()))
+        return points, valid

@@ -99,6 +99,7 @@ import ctypes
 import functools
 import math
 import struct
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -284,6 +285,9 @@ def _cuda_hooks():
     return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _launch(wrapper, name: str, tensors, ints, floats, device, key, packed: Optional[struct.Struct] = None):
     """Launch kernel ``name`` on PyTorch's current stream with ``tensors``
     (None = a null pointer), the int arguments ``ints`` and the fp32
@@ -304,8 +308,9 @@ def _launch(wrapper, name: str, tensors, ints, floats, device, key, packed: Opti
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    wrapper.launches += 1
-    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+    with _COUNT_LOCK:  # threads that launch at once (a server's) lose no count
+        wrapper.launches += 1
+        wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def kernel_variant(dtype: torch.dtype, head_dim: int, kernel: str, n: Optional[int] = None,

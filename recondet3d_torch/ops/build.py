@@ -7,7 +7,9 @@ takes seconds) and loaded through ``ctypes``. Libraries go to
 ``.gitignore``); the hash covers every source and the flags, so an edited
 source builds anew and an unchanged one is reused. The compiler's report
 (``-Xptxas -v``: registers, spills, shared memory, warnings) is kept beside
-each library. Nothing here runs at import time.
+each library. Nothing here runs at import time. The first call builds and
+loads under a lock, so threads that launch their first kernels at once
+(a server's worker and its handlers) wait for one build.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -31,6 +34,7 @@ _FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 # per source: {"seconds": seconds from its nvcc's start to its end, read in turn (0.0 if cached), "ptxas": compiler
 # report (of the build that made the library, if cached)}
 BUILD_LOG: Dict[str, dict] = {}
@@ -58,6 +62,13 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
     {source stem: CDLL}. Raises with the compiler's output on failure."""
     if _libs:
         return _libs
+    with _lock:
+        if not _libs:
+            _build_and_load()
+    return _libs
+
+
+def _build_and_load() -> None:
     out = _build_dir()
     out.mkdir(parents=True, exist_ok=True)
     # one nvcc per source, all started together; a library is written under a
@@ -85,6 +96,5 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, out / f"lib{stem}.so")
     if failed:
         raise RuntimeError("\n".join(failed))
-    for src in sources:
-        _libs[src.stem] = ctypes.CDLL(str(out / f"lib{src.stem}.so"))
-    return _libs
+    libs = {src.stem: ctypes.CDLL(str(out / f"lib{src.stem}.so")) for src in sources}
+    _libs.update(libs)  # all at once: a thread that finds _libs non-empty finds every library

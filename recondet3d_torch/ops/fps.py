@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -47,6 +48,7 @@ MAX_POINTS = (1 << 23) - 2  # the kernel packs an index into 23 bits
 # the launch shape csrc/fps.cu fixes: 16 CTAs a cluster, 512 threads a CTA, 10 points a thread in registers
 CLUSTER = 16
 REG_POINTS = 10 * 512
+_COUNT_LOCK = threading.Lock()
 MAX_CLUSTERS = 7  # the most clusters of 16 CTAs an H100 runs at once at a CTA's full shared memory
 _SMEM_LIMIT, _SMEM_FIXED = 232448, 2048  # a CTA's shared memory, and the part before the points
 # points a CTA can hold: 16 B of {x, y, z, index} each in shared memory, and 4 B of min-distance beyond the registers
@@ -129,8 +131,9 @@ def furthest_point_sample_cuda(points: torch.Tensor, valid: torch.Tensor, start:
     if err != 0:
         raise RuntimeError(f"fps kernel launch failed: cudaError {err} (N={N}, K={K}, {plan})")
     fn = furthest_point_sample_cuda
-    fn.launches += 1
-    fn.launches_by_shape[(N, K)] = fn.launches_by_shape.get((N, K), 0) + 1
+    with _COUNT_LOCK:  # threads that launch at once (a server's) lose no count
+        fn.launches += 1
+        fn.launches_by_shape[(N, K)] = fn.launches_by_shape.get((N, K), 0) + 1
     fn.last_args, fn.last_plan, fn.last_ctrl = (points, valid, start, K), plan, ctrl
     return out
 

@@ -32,13 +32,17 @@ def compute_grid_size(point_cloud_range: Sequence[float], voxel_size: Sequence[f
 
 
 def _point_coors(points_xyz: torch.Tensor, pcr, vs, grid) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-point integer voxel coords (zyx, int64) + validity mask."""
+    """Per-point integer voxel coords (zyx, int64) + validity mask.
+
+    The offset is scaled by the reciprocal of the voxel size, rounded to the
+    points' dtype, as XLA compiles the JAX package's division by a constant:
+    a point within an ulp of a voxel face lands where it lands there."""
     mins = torch.tensor(tuple(pcr[:3]), dtype=points_xyz.dtype, device=points_xyz.device)
-    sizes = torch.tensor(tuple(vs), dtype=points_xyz.dtype, device=points_xyz.device)
+    inv_sizes = 1.0 / torch.tensor(tuple(vs), dtype=points_xyz.dtype, device=points_xyz.device)
     finite = torch.isfinite(points_xyz).all(dim=-1)
     # non-finite rows are invalid anyway; zero them so the float -> int cast is defined
     xyz = torch.where(finite[:, None], points_xyz, torch.zeros_like(points_xyz))
-    c = torch.floor((xyz - mins) / sizes).long()  # (N, 3) xyz
+    c = torch.floor((xyz - mins) * inv_sizes).long()  # (N, 3) xyz
     limits = torch.tensor(tuple(grid), dtype=torch.long, device=points_xyz.device)
     valid = ((c >= 0) & (c < limits)).all(dim=-1) & finite
     return c.flip(-1), valid

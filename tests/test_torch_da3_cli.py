@@ -14,7 +14,8 @@ Their ``prediction.npz`` files agree at ATOL 1e-3 / RTOL 1e-2
 resamplers, within one level of cv2's, tests/test_torch_input_processor.py),
 and each writes the same set of files. The JAX CLI's model is built once
 and reused by its second call (its ``from_pretrained`` jit-compiles an init
-of every branch, ~20 s on a CPU). ``backend``, ``gallery`` and, without
+of every branch, ~20 s on a CPU). ``backend`` and ``gallery`` call the
+port's ``start_server`` / ``serve_gallery`` with their arguments; without
 cv2, ``video`` and the ``gs_video`` exporter raise the errors the port
 states.
 """
@@ -124,9 +125,23 @@ def test_auto_and_colmap_match_jax_cli(setup, jax_cli_once, tmp_path):
 
 def test_unported_and_cv2_errors(setup, tmp_path, monkeypatch):
     _, cache, _ = setup
-    for cmd in ("backend", "gallery"):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            t_cli.main([cmd])
+    # backend and gallery hand their arguments to the port's servers (patched here, so that nothing serves)
+    from recondet3d_torch.serve import backend, gallery
+
+    calls = []
+    monkeypatch.setattr(backend, "start_server", lambda **kw: calls.append(("backend", kw)))
+    monkeypatch.setattr(gallery, "serve_gallery", lambda root, **kw: calls.append(("gallery", dict(root=root, **kw))))
+    assert t_cli.main(["backend"]) == 0
+    assert t_cli.main(["backend", "--model", "da3-small", "--cache-dir", cache, "--host", "0.0.0.0", "--port", "8123",
+                       "--workdir", str(tmp_path / "wd"), "--device", "cpu"]) == 0
+    assert t_cli.main(["gallery", "--root", str(tmp_path / "wd"), "--port", "8124"]) == 0
+    assert calls == [
+        ("backend", dict(model_name="depth-anything/DA3NESTED-GIANT-LARGE", cache_dir="ckpts", host="127.0.0.1",
+                         port=8000, workdir="da3_backend", device="cuda")),
+        ("backend", dict(model_name="da3-small", cache_dir=cache, host="0.0.0.0", port=8123,
+                         workdir=str(tmp_path / "wd"), device="cpu")),
+        ("gallery", dict(root=str(tmp_path / "wd"), host="127.0.0.1", port=8124)),
+    ]
     video = tmp_path / "clip.mp4"
     video.write_bytes(b"\x00" * 64)
     assert t_cli.detect_input_type(str(video)) == "video"

@@ -107,3 +107,68 @@ def test_pipeline_chain_matches_jax():
         jp, jv = getattr(jpp, name)(jp, jv, **kw)
         counts.append(_same(tp, tv, jp, jv))
     assert counts[0] > counts[1] > counts[2] == 512
+
+
+def _sorted_rows(a):
+    return a[np.lexsort(a.T[::-1])]
+
+
+@pytest.mark.parametrize("n,max_voxels,channels", [(3000, 4096, 3), (20000, 1500, 6)])
+def test_voxel_downsample_matches_jax(n, max_voxels, channels):
+    """Voxel centroids of every channel; 1,500 < occupied voxels truncates.
+    The packages may order rows otherwise (ROADMAP §1), so the valid counts
+    are compared exactly and the centroids sorted by coordinates, at 1e-5
+    (fp32 means summed in another order). Coordinates at 0.1 m voxels,
+    continuous: the port scales by the fp32 reciprocal as XLA does."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-9.0, 9.0, (n, channels)).astype(np.float32)
+    pts[:, 2] *= 0.1
+    valid = rng.random(n) < 0.8
+    kw = dict(voxel_size=(0.1, 0.1, 0.1), point_cloud_range=RANGE, max_voxels=max_voxels)
+    tc, tv = tpp.voxel_downsample(t(pts), t(valid), **kw)
+    jc, jv = jpp.voxel_downsample(jnp.asarray(pts), jnp.asarray(valid), **kw)
+    tv, jv = tv.numpy(), np.asarray(jv)
+    assert tc.shape == (max_voxels, channels) and tv.shape == jv.shape
+    assert tv.sum() == jv.sum() == (max_voxels if max_voxels == 1500 else tv.sum()) > 0
+    if max_voxels == 1500:  # appearance order: the same voxels survive the cut
+        np.testing.assert_allclose(tc.numpy()[tv], np.asarray(jc)[jv], atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(_sorted_rows(tc.numpy()[tv]), _sorted_rows(np.asarray(jc)[jv]), atol=1e-5, rtol=0)
+
+
+def test_point_pipeline_matches_jax():
+    """All four transform types in one PointPipeline (``enabled`` ignored),
+    and KeyError on an unknown type, in both packages."""
+    pts, valid = _cloud(6000, 6)
+    transforms = [
+        dict(type="FilterPointByRange", point_cloud_range=RANGE, enabled=True),
+        dict(type="VoxelDownsample", voxel_size=(0.25, 0.25, 0.25), point_cloud_range=RANGE, max_voxels=4096),
+        dict(type="BallQueryDownsample", anchor_points=256, max_radius=0.5, sample_num=8, grid_dim=16),
+        dict(type="FPSDownsample", num_points=512, enabled=False),
+    ]
+    tp, tv = tpp.PointPipeline(transforms)(t(pts), t(valid))
+    jp, jv = jpp.PointPipeline(transforms)(jnp.asarray(pts), jnp.asarray(valid))
+    assert _same(tp, tv, jp, jv) == 512
+    for pipeline, arrays in ((tpp.PointPipeline, (t(pts), t(valid))),
+                             (jpp.PointPipeline, (jnp.asarray(pts), jnp.asarray(valid)))):
+        with pytest.raises(KeyError, match="Unknown"):
+            pipeline([dict(type="Unknown")])(*arrays)
+
+
+def test_stages_pass_small_buffers_through():
+    """A buffer of at most K rows: the ball-query stage passes it through and
+    the FPS stage compacts it and pads it to K rows with invalid zero rows,
+    without an FPS call (the JAX package raises there: its FPS output and its
+    compacted buffer differ in length)."""
+    pts, valid = _cloud(100, 7)
+    n = valid.sum()
+    bp, bv = tpp.ball_query_downsample(t(pts), t(valid), anchor_points=100)
+    np.testing.assert_array_equal(bv.numpy(), valid)
+    np.testing.assert_array_equal(bp.numpy(), pts)
+    bp, bv = tpp.ball_query_downsample(t(pts), t(valid), anchor_points=100, compact=True)
+    assert bv[:n].all() and not bv[n:].any()
+    np.testing.assert_array_equal(bp.numpy()[:n], pts[valid])
+    fp, fv = tpp.fps_downsample(t(pts), t(valid), num_points=256)
+    assert fp.shape == (256, 3) and fv.sum() == n
+    np.testing.assert_array_equal(fp.numpy()[:n], pts[valid])
+    assert not fv[n:].any() and not fp[100:].any()  # the invalid rows, then the padding
