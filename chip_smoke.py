@@ -124,7 +124,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 14. train    the production train step: the nested-giant model of phase 4,
             ``Trainer`` with DA3 frozen; one warm-up and three steps; finite
             loss, no backward-kernel launch, no optimizer state for DA3, DA3
-            parameters bit-identical afterwards.
+            parameters bit-identical afterwards; then ``FlaxBatchNorm2d``'s
+            train-mode form (flax's E[x^2] - E[x]^2) against ``F.batch_norm``'s
+            fused kernel, ten alternating pairs of steps, reported.
 16. detection ``build_model_from_cfg(configs/resdet3d_centerhead.py)`` at full
             width (nested-giant-large, no pre-reduce, the CenterHead's six
             tasks): one warm-up and three B=2 requests through
@@ -207,6 +209,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
             launches counted at checked shapes); (e) ``check_model_memory`` on
             the detection config: its TOTAL equal to phase 16's model's, and
             a device memory line keyed ``cuda:0``.
+22. training, the rest: (a) ``build_resdet3d("da3nested-giant-large",
+            freeze_da3=False, remat_policy=p)`` for p in block, global, attn,
+            dots at phase 12's configuration (the sky head's last convolution
+            zeroed and both depth heads' scaled by 0.1, here only), ``Trainer``
+            with ``frozen_patterns=()``, AdamW lr 1e-4, B=1 scene x 6 views x
+            900x1600, 40,000 GT points (and the camera decoder's field of
+            view set to constants, here only): one warm-up and two steps, every one
+            from the same state; per policy ms a step (host, synchronised)
+            and the device span (CUDA events), peak memory, flash forward / dq
+            / dK/dV launches per shape held to the policy's count (forward 128
+            a step, 78 under global; dq and dK/dV 64), the loss, the DA3 and
+            refinement gradient norms; the first step's loss bit-identical
+            across policies, the DA3 probe gradients within the larger of
+            1e-3 and twice block's own run-to-run reading of block's,
+            a ViT-g, a ViT-L and a refinement parameter moved; under block
+            and dots phase 13's in-situ backward on the ViT-L and ViT-g
+            probes: kernels, plain attention and a witness with the kernels'
+            bf16 roundings, the kernels held to plain and to the witness at
+            the larger of phase 13's tolerance and 1.5 x the witness's own
+            distance from plain. (b) the
+            production config through ``cli.train`` under ``torchrun
+            --nproc_per_node 1`` (NCCL) and in one process, two steps each on
+            phase 19's fixture: exit 0, equal logged losses, a checkpoint that
+            loads; two gloo ranks on the card (the tiny CenterHead config, one
+            step) held to one process at B=2, the batch statistics and the
+            clouds' valid counts included; ``--num-devices`` past the
+            visible cards refused with both counts. (c) ``EMDLoss`` and
+            ``ColorLoss`` at 40,000 x 40,000 points forward and backward, ms
+            and peak memory, held on a 4,096-point subset to one chunk.
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
@@ -229,7 +260,9 @@ Needs CUDA; exits non-zero without it (or without the rest of the repo).
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
+import gc
 import importlib
 import importlib.util
 import io
@@ -271,9 +304,11 @@ from recondet3d_torch.data.pipelines.point_pipeline import (ball_query_downsampl
                                                             voxel_pre_reduce, PointPipeline)
 from recondet3d_torch.models.da3 import CameraEnc, build_da3
 from recondet3d_torch.models.da3 import gs_renderer
+from recondet3d_torch.models.da3 import layers as da3_layers
 from recondet3d_torch.models.da3.gs_renderer import render_3dgs, render_trajectory_frames
 from recondet3d_torch.models.da3.layers import init_parameters_, set_attn_impl
 from recondet3d_torch.models.detect import build_resdet3d
+from recondet3d_torch.models.refine import bev_unet
 from recondet3d_torch.ops import fps as fps_ops
 from recondet3d_torch.models.detect import ReconstructionBackbone, ResDet3D
 from recondet3d_torch.ops import attention as port_attention
@@ -469,6 +504,43 @@ SERVE_REQUESTS = 3
 SERVE_POLL_S = 0.01
 SERVE_TIMEOUT_S = 300
 SERVE_VIDEO_FRAMES = 8  # posted; the web app's default trajectory (interpolate) renders TRAJ_FRAMES, as the JAX app
+# phase 22, the rest of training. (a) nested-giant-large fine-tuned unfrozen (1,657,864,842 parameters: fp32 masters,
+# AdamW's two moments and the gradients, 16 B a parameter), B=1 scene x 6 views, under each rematerialization policy:
+# one warm-up and NESTED_FT_STEPS steps, every one from the same state (restored from a copy in host memory)
+NESTED_FT_POLICIES = ("block", "global", "attn", "dots")
+NESTED_FT_STEPS, NESTED_FT_LR, NESTED_FT_SEED = 2, 1e-4, 2
+NESTED_FT_PARAMS = 1657864842
+# (B, H, N, M) of a B=1 nested forward and its blocks: 26 ViT-g local, 14 ViT-g global, 24 ViT-L local
+NESTED_FT_SHAPES = {"vitg_local": (S, 24, 721, 721), "vitg_global": (1, 24, S * 721, S * 721),
+                    "vitl_local": (S, 16, 721, 721)}
+NESTED_FT_BLOCKS = {"vitg_local": 26, "vitg_global": 14, "vitl_local": 24}
+# the DA3 probe gradients of the first step (patch embedding, last ViT-g and last ViT-L block's qkv) under each policy
+# against 'block': the policies change what is kept, not the arithmetic. The backward is not the same bits from run to
+# run (bilinear upsampling's backward and cuDNN's backward convolutions in the heads sum with atomics, and 40 bf16
+# ViT-g blocks carry a flipped rounding on), so the gate is the larger of 1e-3 and twice what 'block' itself reads
+# between two steps from the same state (the floor, measured in the same run)
+NESTED_PROBE_REL_TOL = 1e-3
+# The random nested net empties its own cloud three ways: its sky head's ReLU output is past the 0.3 threshold nearly
+# everywhere (every pixel sky); its camera decoder's ReLU field of view is 0 (tan clamped at 1e-6: a focal length
+# of 2.5e8 px, so the metric depth, scaled by focal / 300, and the aligned depth lie near 6e5 m); and depth =
+# exp(logit) of its two random depth heads overflows under AdamW (phase 12). Either of the first two leaves DA3 no
+# gradient. This phase alone (never the package) zeroes the sky head's last convolution (sky = ReLU(0) = 0), sets
+# the field-of-view layer to a constant NESTED_FOV_RAD (its weights zero, its bias the angles: focal lengths of
+# ~370 px at 280x504) and scales both depth heads' last convolution by FT_DEPTH_HEAD_SCALE, before the first step;
+# every step starts from that state.
+NESTED_SKY_HEAD_SCALE = 0.0
+NESTED_FOV_RAD = (0.75, 1.2)  # (vertical, horizontal), about a nuScenes camera's
+# the nested in-situ backward: kernels within this factor of the rounded witness's own distance from plain (it read
+# 1.04-1.17x on the ViT-g probes on an H100 80GB HBM3, 700 W)
+NESTED_WITNESS_FACTOR = 1.5
+# alternating pairs of production train steps, FlaxBatchNorm2d's train-mode form against F.batch_norm's (phase 14)
+BN_FORM_PAIRS = 10
+# (b) data parallelism: the production config through the CLI under torchrun (NCCL, one rank) and without it, two
+# steps each; two gloo ranks on the one card (the tiny CenterHead config, one step) against one process at B=2
+DP_STEPS = 2
+# (c) the point losses at 40,000 x 40,000 points (B=1), held to the same loss unchunked on a 4,096-point subset
+POINT_LOSS_POINTS, POINT_LOSS_SUBSET, POINT_LOSS_CHUNK, POINT_LOSS_REL_TOL = 40000, 4096, 1024, 1e-5
+
 CLI_COUNTING = """import importlib, json, sys
 from recondet3d_torch.ops.attention import flash_attention_fwd
 from recondet3d_torch.ops.fps import furthest_point_sample_cuda
@@ -1717,6 +1789,52 @@ def train_batch(seed):
     gt[..., 2] = rng.uniform(-4, 2, (TRAIN_B, GT_POINTS))
     return dict(img=images(seed)[:TRAIN_B], cam2lidar_rts=torch.from_numpy(rig_cam2lidar(TRAIN_B)).cuda(),
                 gt_points=torch.from_numpy(gt).cuda())
+
+
+def fused_bn_forward(self, x):
+    """``FlaxBatchNorm2d.forward`` through ``F.batch_norm``'s fused kernel, the running statistics moved as flax moves
+    them (the biased variance): the one-process alternative that ``bn_form_pairs`` times against the module's own."""
+    x = x.float()
+    if not self.training:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, training=False,
+                            eps=self.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+        self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+    return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+
+
+def bn_form_pairs(trainer, batch):
+    """``FlaxBatchNorm2d``'s train-mode form (flax's E[x^2] - E[x]^2 from sums) against ``fused_bn_forward``
+    (``F.batch_norm``'s fused kernel) in one process, on the production step: after a warm-up step of each,
+    BN_FORM_PAIRS alternating pairs of steps (fused, flax, then flax, fused, ...): host ms around each step
+    (synchronised) and its device span (CUDA events), and the pairs the fused form won. Measured, not gated."""
+    kept = bev_unet.FlaxBatchNorm2d.forward
+    times = {form: dict(ms=[], device_ms=[]) for form in ("fused", "flax")}
+    state = trainer.init_state()
+    try:
+        for i in range(-2, 2 * BN_FORM_PAIRS):
+            form = ("fused", "flax", "flax", "fused")[i % 4]
+            bev_unet.FlaxBatchNorm2d.forward = fused_bn_forward if form == "fused" else kept
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            state, _ = trainer.run(state, iter([batch]), max_steps=1)
+            e1.record()
+            torch.cuda.synchronize()
+            if i >= 0:
+                times[form]["ms"].append(1e3 * (time.perf_counter() - t0))
+                times[form]["device_ms"].append(e0.elapsed_time(e1))
+    finally:
+        bev_unet.FlaxBatchNorm2d.forward = kept
+    stats = {form: {k: dict(values=v, median=float(np.median(v)), quartiles=np.percentile(v, [25, 75]).tolist())
+                    for k, v in t.items()} for form, t in times.items()}
+    flax_minus_fused = [b - a for a, b in zip(times["fused"]["ms"], times["flax"]["ms"])]
+    return dict(pairs=BN_FORM_PAIRS, order="fused, flax, flax, fused, ...", forms=stats,
+                flax_minus_fused_ms=flax_minus_fused, flax_minus_fused_median_ms=float(np.median(flax_minus_fused)),
+                pairs_fused_won=sum(d > 0 for d in flax_minus_fused))
 
 
 def fit_max_depth(model, batch, what):
@@ -3195,6 +3313,496 @@ def serve_phase(api, smi, fwd_case_of, det_fps_case_of, exchange_us, kept, det_p
     return res
 
 
+def nested_finetune_model(policy, max_depth=None):
+    """``build_resdet3d("da3nested-giant-large", freeze_da3=False, remat_policy=policy)`` at phase 12's configuration,
+    random weights from NESTED_FT_SEED (the same for every policy), with this phase's head changes
+    (NESTED_SKY_HEAD_SCALE) and, where given, the ``max_depth`` the first policy's build chose."""
+    kw = {} if max_depth is None else dict(max_depth=max_depth)
+    model = build_resdet3d(PRESET, dtype=torch.bfloat16, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(NESTED_FT_SEED), refinement=REFINEMENT,
+                           voxel_pre_reduce=PRE_REDUCE_VOXEL, pre_reduce_cap=PRE_REDUCE_CAP, bq_anchor_points=ANCHORS,
+                           num_points=NUM_POINTS, freeze_da3=False, remat_policy=policy, **kw)
+    nested = model.reconstruction_backbone.da3
+    with torch.no_grad():
+        for head in (nested.da3.head, nested.da3_metric.head):
+            head.scratch.output_conv2._modules["2"].weight.mul_(FT_DEPTH_HEAD_SCALE)
+        nested.da3_metric.head.scratch.sky_output_conv2._modules["2"].weight.mul_(NESTED_SKY_HEAD_SCALE)
+        fov = nested.da3.cam_dec.fc_fov[0]
+        fov.weight.zero_()
+        fov.bias.copy_(torch.tensor(NESTED_FOV_RAD))
+    return model
+
+
+def nested_probes(model):
+    nested = model.reconstruction_backbone.da3
+    vitg, vitl = nested.da3.backbone.pretrained, nested.da3_metric.backbone.pretrained
+    return {"patch_embed": vitg.patch_embed.proj.weight, "vitg_last_qkv": vitg.blocks[-1].attn.qkv.weight,
+            "vitl_last_qkv": vitl.blocks[-1].attn.qkv.weight}
+
+
+def grad_norm_of(grads):
+    return float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))) \
+        if grads else 0.0
+
+
+def nested_step(model, trainer, batch, state0):
+    """One ``Trainer.run`` step from ``state0`` (the model's state dict, kept in host memory; the optimizer's
+    moments zero and its count 0, as after ``init_state``): host ms around the step (synchronised), the device span
+    (CUDA events), peak memory, the kernels' launches (counts set to 0 just before, read just after), the loss, the
+    DA3 and refinement gradient norms and the probe gradients."""
+    model.load_state_dict(state0)
+    opt = trainer.optimizer
+    with torch.no_grad():
+        for t in opt.mu + opt.nu:
+            t.zero_()
+    opt.count = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    fps_ops.reset_launch_counts()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    _, history = trainer.run(trainer.init_state(), iter([batch]), max_steps=1)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(fwd=d64_launches(flash_attention_fwd, "nested_finetune"),
+                    dq=d64_launches(flash_attention_bwd_dq, "nested_finetune"),
+                    dkv=d64_launches(flash_attention_bwd_dkv, "nested_finetune"),
+                    fps=dict(fps_ops.furthest_point_sample_cuda.launches_by_shape))
+    grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    return dict(ms=ms, device_ms=e0.elapsed_time(e1), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                loss=history[0]["loss"], grad_norm=history[0]["grad_norm"], metrics=history[0],
+                da3_grad_norm=grad_norm_of([g for n, g in grads.items() if ".da3." in n]),
+                refinement_grad_norm=grad_norm_of([g for n, g in grads.items() if ".refinement." in n]),
+                grads_finite=all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                valid_counts={k: [int(c) for c in v]
+                              for k, v in model.reconstruction_backbone.last_stage_counts.items()},
+                launches=launches,
+                probes={k: p.grad.detach().float().clone() for k, p in nested_probes(model).items()})
+
+
+def nested_expected_launches(policy):
+    """Per step: every block's forward once, and again in the backward where the policy recomputes it ('global':
+    the global blocks only); dq and dk/dv once a block."""
+    again = {name: policy != "global" or name == "vitg_global" for name in NESTED_FT_BLOCKS}
+    return dict(fwd={NESTED_FT_SHAPES[n]: c * (2 if again[n] else 1) for n, c in NESTED_FT_BLOCKS.items()},
+                dq={NESTED_FT_SHAPES[n]: c for n, c in NESTED_FT_BLOCKS.items()},
+                dkv={NESTED_FT_SHAPES[n]: c for n, c in NESTED_FT_BLOCKS.items()})
+
+
+class RoundedAttention(torch.autograd.Function):
+    """The plain attention with the bf16 kernels' roundings, a second witness for the in-situ backward. Forward as
+    csrc/flash_attn_fwd.cu states it: s = bf16(q * scale) k^T in fp32, p = exp(s - rowmax(s)), l = sum(p) in fp32,
+    out = bf16((bf16(p) v) / l), lse = m + log(l) (the kernel's max is a running one); backward
+    ``attention_bwd_plain``, which rounds P and dS to bf16 before the second products as the dq and dK/dV kernels
+    do. Everything else is fp32, as in the plain version. Without kv_len (the DA3 trunks pass none)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        s = torch.einsum("bhnd,bhmd->bhnm", (q.float() * scale).to(q.dtype).float(), k.float())
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        del s
+        l = p.sum(dim=-1, keepdim=True)
+        out = (torch.einsum("bhnm,bhmd->bhnd", p.to(q.dtype).float(), v.float()) / l).to(q.dtype)
+        lse = (m + torch.log(l))[..., 0]
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attention_bwd_plain(q, k, v, out, lse, dout, None, ctx.scale), None)
+
+
+@contextlib.contextmanager
+def rounded_attention():
+    """Every DA3 attention layer runs ``RoundedAttention`` inside the block (the layers call
+    ``layers.flash_attention``)."""
+    def witness(q, k, v, kv_len=None, scale=None, impl="auto"):
+        if kv_len is not None:
+            raise ValueError("the rounded witness takes no kv_len")
+        return RoundedAttention.apply(q, k, v, scale)
+
+    kept = da3_layers.flash_attention
+    da3_layers.flash_attention = witness
+    try:
+        yield
+    finally:
+        da3_layers.flash_attention = kept
+
+
+def nested_in_situ(model, batch):
+    """Phase 13's in-situ backward on this model (under its policy): a smooth scalar of the nested net's depth,
+    backward into the probes with the kernels, with the plain attention under autograd (fp32 P and dS) and with
+    ``RoundedAttention`` (the plain attention with the kernels' bf16 roundings). Phase 13's probes are those of
+    da3-large's ViT-L (its patch embedding and last block's qkv): here the metric branch's ViT-L, which is that trunk;
+    the ViT-g's are held beside them (``vitg_*``). Its 40 random-weight blocks carry any change of a bf16 rounding
+    further than 24 do: the witness, which rounds as the kernels do but not at the same points of the online softmax,
+    reads about as far from plain and from the kernels as the kernels read from plain (0.18-0.24 on the ViT-g probes,
+    0.003 on the ViT-L ones). So kernels against plain and kernels against the witness are each held at the larger of
+    phase 13's tolerance and NESTED_WITNESS_FACTOR times what the witness reads against plain on the same probe: a
+    kernel fault would read several times past what a change of rounding does."""
+    da3 = model.reconstruction_backbone.da3
+    vitg, vitl = da3.da3.backbone.pretrained, da3.da3_metric.backbone.pretrained
+    probes = {"vitl_patch_embed": vitl.patch_embed.proj.weight, "vitl_last_qkv": vitl.blocks[-1].attn.qkv.weight,
+              "vitg_patch_embed": vitg.patch_embed.proj.weight, "vitg_last_qkv": vitg.blocks[-1].attn.qkv.weight}
+    x, _ = process_tensor_batch(batch["img"], process_res=504)
+    weights = torch.from_numpy(
+        np.random.default_rng(7).standard_normal((TRAIN_B, S, 280, 504)).astype(np.float32)).cuda()
+
+    def da3_backward():
+        out = da3(x, use_ray_pose=False, ref_view_strategy="first")
+        loss = (torch.log(out["depth"].float()) * weights).mean()
+        return loss.item(), torch.autograd.grad(loss, list(probes.values()))
+
+    reset_launch_counts()
+    loss_k, grads_k = da3_backward()
+    launches = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    set_attn_impl(da3, "plain")
+    try:
+        loss_p, grads_p = da3_backward()
+    finally:
+        set_attn_impl(da3, "auto")
+    with rounded_attention():
+        loss_r, grads_r = da3_backward()
+    rel = lambda a, b: {name: rel_l2(x, y) for name, x, y in zip(probes, a, b)}  # noqa: E731
+    res = dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rounded=loss_r, launches_fwd_dq_dkv=launches,
+               tol=GRAD_REL_TOL, witness_factor=NESTED_WITNESS_FACTOR,
+               grad_rel_l2=rel(grads_k, grads_p), rounded_vs_plain=rel(grads_r, grads_p),
+               kernels_vs_rounded=rel(grads_k, grads_r))
+    res["tol_vs_plain"] = {k: max(GRAD_REL_TOL, NESTED_WITNESS_FACTOR * e) for k, e in res["rounded_vs_plain"].items()}
+    res["ok"] = all(e <= res["tol_vs_plain"][k] for key in ("grad_rel_l2", "kernels_vs_rounded")
+                    for k, e in res[key].items())
+    return res
+
+
+def nested_finetune_phase(fwd_case_of, bwd_case_of, fps_case_of, smi):
+    """Phase 22a: nested-giant-large fine-tuned unfrozen under each remat policy. Returns the result and the
+    launches of each policy's timed steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(memory_at_start=dict(allocated_gb=torch.cuda.memory_allocated() / 1e9,
+                                    reserved_gb=torch.cuda.memory_reserved() / 1e9),
+               card=smi, policies={}, head_changes=dict(depth_heads_last_conv=FT_DEPTH_HEAD_SCALE,
+                                                        sky_head_last_conv=NESTED_SKY_HEAD_SCALE,
+                                                        camera_decoder_fov_rad=NESTED_FOV_RAD))
+    batch = train_batch(700)
+    max_depth, first = None, {}
+    all_launches = {}
+    for policy in NESTED_FT_POLICIES:
+        t0 = time.perf_counter()
+        model = nested_finetune_model(policy, max_depth)
+        if max_depth is None:
+            model, chosen = fit_max_depth(model, batch, "nested_finetune")
+            max_depth = chosen["max_depth"]
+        trainer = Trainer(model=model, total_steps=1000, lr=NESTED_FT_LR, frozen_patterns=())
+        state0 = {k: v.detach().cpu().pin_memory() for k, v in model.state_dict().items()}
+        trained = sum(p.numel() for p in trainer.optimizer.params)
+        build_s = time.perf_counter() - t0
+        steps = [nested_step(model, trainer, batch, state0) for _ in range(1 + NESTED_FT_STEPS)]
+        watched = {"vitg": nested_probes(model)["vitg_last_qkv"], "vitl": nested_probes(model)["vitl_last_qkv"],
+                   "refinement": model.reconstruction_backbone.refinement.middle_encoder.conv_input.weight}
+        names = {id(p): n for n, p in model.named_parameters()}
+        moved = {k: float((p.detach().cpu() - state0[names[id(p)]]).abs().max()) for k, p in watched.items()}
+        expected = nested_expected_launches(policy)
+        timed = steps[1:]
+        out = dict(
+            build_s=build_s, params=sum(p.numel() for p in model.parameters()), trained_params=trained,
+            static_gb=dict(parameters_fp32=4 * trained / 1e9, gradients_fp32=4 * trained / 1e9,
+                           adam_moments_fp32=8 * trained / 1e9, total=16 * trained / 1e9),
+            ms_per_step=[t["ms"] for t in timed], device_ms_per_step=[t["device_ms"] for t in timed],
+            ms_mean=float(np.mean([t["ms"] for t in timed])),
+            device_ms_mean=float(np.mean([t["device_ms"] for t in timed])),
+            peak_mem_gb=max(t["peak_mem_gb"] for t in timed), warmup_ms=steps[0]["ms"],
+            losses=[t["loss"] for t in steps], grad_norms=[t["grad_norm"] for t in steps],
+            da3_grad_norm=[t["da3_grad_norm"] for t in steps],
+            refinement_grad_norm=[t["refinement_grad_norm"] for t in steps], metrics=steps[0]["metrics"],
+            valid_counts=steps[0]["valid_counts"], moved=moved,
+            launches_per_step={k: {str(s): n for s, n in v.items()} for k, v in timed[-1]["launches"].items()},
+            expected_launches_per_step={k: {str(s): n for s, n in v.items()} for k, v in expected.items()})
+        first[policy] = steps[0]
+        if policy == "block":
+            floor = {k: rel_l2(steps[1]["probes"][k], g) for k, g in steps[0]["probes"].items()}
+        all_launches[policy] = timed[-1]["launches"]
+        for i, t in enumerate(steps):
+            for kind in ("fwd", "dq", "dkv"):
+                if t["launches"][kind] != expected[kind]:
+                    fail(f"nested finetune ({policy}), step {i}: {kind} launches {t['launches'][kind]}, "
+                         f"expected {expected[kind]}")
+            unchecked = [sh for sh in t["launches"]["fwd"] if sh not in fwd_case_of]
+            unchecked += [sh for kind in ("dq", "dkv") for sh in t["launches"][kind] if sh not in bwd_case_of]
+            unchecked += [sh for sh in t["launches"]["fps"] if sh not in fps_case_of]
+            if unchecked:
+                fail(f"nested finetune ({policy}): a kernel ran at shapes no kernel case checked: {unchecked}")
+            if not (np.isfinite(t["loss"]) and t["grads_finite"] and t["da3_grad_norm"] > 0):
+                fail(f"nested finetune ({policy}), step {i}: loss {t['loss']}, finite gradients {t['grads_finite']}, "
+                     f"DA3 gradient norm {t['da3_grad_norm']}")
+        if not all(v > 0 for v in moved.values()):
+            fail(f"nested finetune ({policy}): a watched parameter did not move: {moved}")
+        if policy in ("block", "dots"):  # 'block' beside 'dots': what the policy adds to the readings
+            model.load_state_dict(state0)
+            out["in_situ"] = nested_in_situ(model, batch)
+            # both patch embeddings need every block's backward; the policy recomputes every block's forward
+            n_blocks = sum(NESTED_FT_BLOCKS.values())
+            if out["in_situ"]["launches_fwd_dq_dkv"] != (2 * n_blocks, n_blocks, n_blocks):
+                fail(f"nested finetune ({policy}) in situ: launches {out['in_situ']['launches_fwd_dq_dkv']}")
+            if not out["in_situ"]["ok"]:
+                fail(f"nested finetune ({policy}) in situ: gradient rel L2 {out['in_situ']}")
+        emit("nested_finetune", policy=policy, **out)
+        res["policies"][policy] = out
+        model.zero_grad(set_to_none=True)
+        del model, trainer, state0, watched, steps, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = first["block"]
+    res["first_loss"] = {p: f["loss"] for p, f in first.items()}
+    res["first_loss_bit_identical"] = len({f["loss"] for f in first.values()}) == 1
+    res["probe_rel_l2_vs_block"] = {p: {k: rel_l2(g, ref["probes"][k]) for k, g in f["probes"].items()}
+                                    for p, f in first.items()}
+    res["probe_bit_identical_vs_block"] = {p: all(torch.equal(g, ref["probes"][k]) for k, g in f["probes"].items())
+                                           for p, f in first.items()}
+    res["probe_rel_l2_block_run_to_run"] = floor
+    res["probe_tol"] = {k: max(NESTED_PROBE_REL_TOL, 2 * e) for k, e in floor.items()}
+    res["max_depth"] = max_depth
+    emit("nested_finetune_summary", **{k: v for k, v in res.items() if k != "policies"})
+    if not res["first_loss_bit_identical"]:
+        fail(f"nested finetune: the first step's loss differs between policies: {res['first_loss']}")
+    if not all(e <= res["probe_tol"][k] for errs in res["probe_rel_l2_vs_block"].values() for k, e in errs.items()):
+        fail(f"nested finetune: probe gradients differ from 'block' by {res['probe_rel_l2_vs_block']}")
+    del first, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, all_launches
+
+
+def tiny_dp_batch(model, seed):
+    """A global batch of two for the tiny CenterHead config: two of the rig's views of 900x1600, GT points and boxes
+    from a seed inside its range."""
+    rng = np.random.default_rng(seed)
+    head, bk = model.pts_bbox_head, model.reconstruction_backbone
+    pcr = np.asarray(head.point_cloud_range, np.float32)
+    gt = rng.uniform(pcr[:3], pcr[3:], (2, bk.gt_num_points, 3)).astype(np.float32)
+    n = (2, head.max_objs)
+    boxes = np.concatenate([rng.uniform(pcr[0] + 1, pcr[3] - 1, n + (1,)),
+                            rng.uniform(pcr[1] + 1, pcr[4] - 1, n + (1,)),
+                            rng.uniform(-1.5, 0.0, n + (1,)), rng.uniform(0.5, 4.0, n + (3,)),
+                            rng.uniform(-np.pi, np.pi, n + (1,)), rng.normal(size=n + (2,))], -1).astype(np.float32)
+    labels = rng.integers(0, len(CLASS_NAMES), n)
+    labels[:, -head.max_objs // 4:] = -1
+    return dict(img=images(seed)[:, :2].contiguous(), cam2lidar_rts=torch.from_numpy(rig_cam2lidar(2)[:, :2]).cuda(),
+                gt_points=torch.from_numpy(gt).cuda(), gt_bboxes_3d=torch.from_numpy(boxes).cuda(),
+                gt_labels_3d=torch.from_numpy(labels).cuda())
+
+
+def step_lines(stdout):
+    """The CLI's ``step N:`` lines without their steps_per_sec."""
+    return [re.sub(r" steps_per_sec=\S+", "", line) for line in re.findall(r"^step \d+: .*$", stdout, re.M)]
+
+
+def data_parallel_phase(fwd_case_of, fps_case_of, tiny_fwd_case_of, tiny_fps_case_of):
+    """Phase 22b: (1) the production config through ``cli.train`` under ``torchrun --nproc_per_node 1`` (NCCL, the
+    DDP wrapper, the collectives on CUDA tensors) and in one process without it, at once, DP_STEPS steps each on
+    phase 19's six-view fixture; (2) two gloo ranks on the one card against one process at B=2 (the tiny CenterHead
+    config, one step); (3) ``--num-devices 2`` with one card visible."""
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="recondet3d_dp_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        ann = write_loop_fixture(os.path.join(tmp, "nusc"), S)
+        root = os.path.dirname(ann)
+        ov = ["--cfg-options", f"data.train.dataset.ann_file={ann}", f"data.train.dataset.data_root={root}",
+              f"data.test.ann_file={ann}", f"data.test.data_root={root}"]
+        counting = os.path.join(tmp, "count_cli.py")
+        with open(counting, "w") as f:
+            f.write(CLI_COUNTING)
+        env = dict(os.environ, HF_HUB_OFFLINE="1", PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+        launchers = dict(torchrun=[sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                   "1"], one_process=[sys.executable])
+        for name, launcher in launchers.items():
+            wd = os.path.join(tmp, f"wd_{name}")
+            extra = ["--num-devices", "1"] if name == "torchrun" else []
+            cmd = launcher + [counting, "recondet3d_torch.cli.train", DET_CONFIG, "--work-dir", wd, "--max-steps",
+                              str(DP_STEPS), "--checkpoint-interval", "0"] + extra + ov
+            out, err = (open(os.path.join(tmp, f"{name}.{kind}"), "w+") for kind in ("out", "err"))
+            procs.append(dict(name=name, wd=wd, out=out, err=err, t0=time.perf_counter(),
+                              proc=subprocess.Popen(cmd, cwd=repo, env=env, stdout=out, stderr=err, text=True)))
+        cli = {}
+        for run in procs:
+            try:
+                rc = run["proc"].wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                run["proc"].kill()
+                run["proc"].wait()
+                rc = "timeout"
+            stdout, stderr = [(f.seek(0), f.read(), f.close())[1] for f in (run["out"], run["err"])]
+            line = [l for l in stdout.splitlines() if l.startswith("LAUNCHES ")]
+            cli[run["name"]] = dict(rc=rc, s=time.perf_counter() - run["t0"], steps=step_lines(stdout),
+                                    launches=json.loads(line[-1][len("LAUNCHES "):]) if line else None,
+                                    data_parallel=re.findall(r"^data parallel: .*$", stdout, re.M),
+                                    checkpoint=ckpt_io.latest_checkpoint(run["wd"]), stderr_tail=stderr[-1500:])
+        tr, one = cli["torchrun"], cli["one_process"]
+        if tr["rc"] != 0 or one["rc"] != 0:
+            fail(f"data parallel: cli.train exit codes torchrun {tr['rc']} one process {one['rc']}: "
+                 f"{tr['stderr_tail']} {one['stderr_tail']}")
+        a = ckpt_io.load_checkpoint(tr["checkpoint"])
+        b = ckpt_io.load_checkpoint(one["checkpoint"])
+        loss_of = lambda lines: [float(re.search(r" loss=(\S+)", line).group(1)) for line in lines]  # noqa: E731
+        same_keys = set(a["model"]) == set(b["model"])
+        res["nccl_world_1"] = dict(
+            {k: {kk: vv for kk, vv in v.items() if kk != "stderr_tail"} for k, v in cli.items()},
+            logged_loss_equal=loss_of(tr["steps"]) == loss_of(one["steps"]) and len(tr["steps"]) == DP_STEPS,
+            logged_lines_equal=tr["steps"] == one["steps"],
+            checkpoint_step=a["step"], checkpoint_same_keys=same_keys,
+            checkpoint_keys_without_module_prefix=not any(k.startswith("module.") for k in a["model"]),
+            # reported, not gated: cuDNN's backward convolutions may sum in another order from one process to the next
+            checkpoint_max_abs_diff=max(float((v.float() - b["model"][k].float()).abs().max())
+                                        for k, v in a["model"].items() if v.is_floating_point() and v.numel())
+            if same_keys else None)
+        del a, b
+        fwd_step = {TRAIN_FWD_SHAPES["vitg_local_b1"]: 26, TRAIN_FWD_SHAPES["vitg_global_b1"]: 14,
+                    TRAIN_FWD_SHAPES["vitl_local_b1"]: 24}
+        fps_sizes = ((NO_PRE_REDUCE_ROWS, ANCHORS), (UNION_CAP_NO_PRE_REDUCE, NUM_POINTS))
+        for name, run in cli.items():
+            flash = {tuple(int(x) for x in k.strip("()").split(", ")): n for k, n in (run["launches"] or {}).get(
+                "flash", {}).items()}
+            fpsl = {tuple(int(x) for x in k.strip("()").split(", ")): n for k, n in (run["launches"] or {}).get(
+                "fps", {}).items()}
+            if {k[:4]: n for k, n in flash.items()} != {s: c * DP_STEPS for s, c in fwd_step.items()} \
+                    or any(k[:2] not in fps_case_of for k in fpsl) or sum(fpsl.values()) != len(fps_sizes) * DP_STEPS:
+                fail(f"data parallel ({name}): launches {run['launches']}")
+        emit("data_parallel_nccl", **res["nccl_world_1"])
+        r = res["nccl_world_1"]
+        if not (r["logged_loss_equal"] and r["checkpoint_step"] == DP_STEPS
+                and r["checkpoint_keys_without_module_prefix"]
+                and r["checkpoint_same_keys"] and tr["data_parallel"] and "nccl" in tr["data_parallel"][0]):
+            fail(f"data parallel (torchrun, NCCL at world size 1): {r}")
+        for run in (tr, one):
+            os.remove(run["checkpoint"])
+
+        # (2) two gloo ranks on the one card against one process at the global batch of two
+        worker = tests_module("ddp_worker")
+        tiny = build_model_from_cfg(load_py_config(TINY_CONFIG), device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(0))
+        batch = tiny_dp_batch(tiny, 950)
+        kw = dict(total_steps=1000, lr=1e-3)
+        ref_model = copy.deepcopy(tiny)
+        trainer = Trainer(model=ref_model, **kw)
+        _, history = trainer.run(trainer.init_state(), iter([batch]))
+        ref_counts = {k: [int(c) for c in v] for k, v in ref_model.reconstruction_backbone.last_stage_counts.items()}
+        job_file = os.path.join(tmp, "jobs.pt")
+        torch.save(dict(gather_probe=dict(device="cuda"),
+                        trainer_step=dict(module=tiny, batch=batch, trainer=kw, steps=1)), job_file)
+        t0 = time.perf_counter()
+        ranks = worker.spawn_ranks(2, job_file, tmp, "cuda")
+        spawn_s = time.perf_counter() - t0
+        got = dict(ranks[0]["trainer_step"], other_state=ranks[1]["trainer_step"]["state"])
+        # both runs build the same clouds (the bf16 DA3 gives B=2 the bits of B=1 on the card; the ranks turn TF32
+        # off as the builders do), so the batch statistics are held with the rest
+        rank_counts = {k: sum((r["trainer_step"]["valid_counts"][k] for r in ranks), []) for k in ref_counts}
+        same_cloud = rank_counts == ref_counts
+        found = worker.compare_with_one_process(got, ref_model, history, kw["lr"])
+        launches = [r["trainer_step"]["launches"] for r in ranks]
+        res["gloo_two_ranks"] = dict(
+            spawn_s=spawn_s, loss_two_ranks=got["history"][0]["loss"], loss_one_process=history[0]["loss"],
+            grad_norm_two_ranks=got["history"][0]["grad_norm"], grad_norm_one_process=history[0]["grad_norm"],
+            all_gather_cuda_on_gloo=ranks[0]["gather_probe"],
+            valid_counts_one_process=ref_counts, valid_counts_ranks=[r["trainer_step"]["valid_counts"] for r in ranks],
+            same_cloud=same_cloud,
+            launches_per_rank=[{k: {str(s): n for s, n in v.items()} for k, v in l.items()} for l in launches],
+            **{k: v for k, v in found.items() if k != "ok"}, ok=found["ok"])
+        emit("data_parallel_gloo", **res["gloo_two_ranks"])
+        if not (found["ok"] and same_cloud):
+            fail(f"data parallel (two gloo ranks on the card): clouds equal {same_cloud}, {found}")
+        for l in launches:
+            fwd = {k[:4]: n for k, n in l["fwd"].items()}
+            if fwd != {TINY_FWD_SHAPES[n]: c for n, c in TINY_FWD_PER_FORWARD.items()} \
+                    or any(sh not in tiny_fps_case_of for sh in l["fps"]) or sum(l["fps"].values()) != len(TINY_FPS):
+                fail(f"data parallel (two gloo ranks): a rank's launches {l}")
+        del tiny, ref_model, trainer, ranks, got
+
+        # (3) more devices than the machine has
+        t0 = time.perf_counter()
+        refused = subprocess.run([sys.executable, "-m", "recondet3d_torch.cli.train", DET_CONFIG, "--num-devices",
+                                  str(torch.cuda.device_count() + 1), "--work-dir", os.path.join(tmp, "wd_refused")]
+                                 + ov, cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+        want = (f"--num-devices {torch.cuda.device_count() + 1} needs {torch.cuda.device_count() + 1} CUDA devices, "
+                f"but {torch.cuda.device_count()} are visible")
+        res["refusal"] = dict(rc=refused.returncode, s=time.perf_counter() - t0, message=want,
+                              message_found=want in refused.stderr, stderr_tail=refused.stderr[-400:])
+        emit("data_parallel_refusal", **res["refusal"])
+        if refused.returncode == 0 or want not in refused.stderr:
+            fail(f"data parallel: --num-devices past the visible cards: {res['refusal']}")
+    finally:
+        for run in procs:
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def point_loss_phase():
+    """Phase 22c: ``EMDLoss`` and ``ColorLoss`` at POINT_LOSS_POINTS x POINT_LOSS_POINTS (B=1), forward and backward
+    (chunks of POINT_LOSS_CHUNK rows, each checkpointed): ms and peak memory; and on the first POINT_LOSS_SUBSET
+    points of each cloud the chunked loss against the same loss in one chunk (unchunked)."""
+    from recondet3d_torch.models.losses import ColorLoss, EMDLoss
+
+    rng = np.random.default_rng(960)
+    n = POINT_LOSS_POINTS
+    gt = rng.uniform(-50, 50, (1, n, 3)).astype(np.float32)
+    data = dict(emd=(EMDLoss, gt + rng.normal(0, 0.5, gt.shape).astype(np.float32), gt),
+                color=(ColorLoss, rng.uniform(0, 1, (1, n, 3)).astype(np.float32),
+                       rng.uniform(0, 1, (1, n, 3)).astype(np.float32)))
+    valid = torch.from_numpy(rng.random((1, n)) < 0.9).cuda()
+    res = {}
+    for name, (cls, pred_np, gt_np) in data.items():
+        pred, target = torch.from_numpy(pred_np).cuda(), torch.from_numpy(gt_np).cuda()
+
+        def run(loss_fn, p, g, v):
+            x = p.clone().requires_grad_()
+            value = loss_fn(x, g, gt_valid=v)
+            value.backward()
+            return value.detach(), x.grad
+
+        loss_fn = cls(chunk_size=POINT_LOSS_CHUNK)
+        run(loss_fn, pred, target, valid)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            value, grad = run(loss_fn, pred, target, valid)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        fwd_ms = time_ms(lambda: loss_fn(pred, target, gt_valid=valid), 3, warmup=1)
+        k = POINT_LOSS_SUBSET
+        sub = (pred[:, :k], target[:, :k], valid[:, :k])
+        v_c, g_c = run(loss_fn, *sub)
+        v_u, g_u = run(cls(chunk_size=k), *sub)
+        res[name] = dict(points=n, chunk=POINT_LOSS_CHUNK, loss=value.item(), ms_fwd_bwd=times, ms_fwd=fwd_ms,
+                         peak_mem_gb_over_inputs=peak_gb, finite=bool(torch.isfinite(value)) and bool(
+                             torch.isfinite(grad).all()), grad_norm=float(torch.linalg.vector_norm(grad)),
+                         subset=k, subset_loss_chunked=v_c.item(), subset_loss_unchunked=v_u.item(),
+                         subset_loss_rel_err=abs(v_c.item() - v_u.item()) / abs(v_u.item()),
+                         subset_grad_rel_l2=rel_l2(g_c, g_u), tol=POINT_LOSS_REL_TOL)
+        emit("point_loss", loss_name=name, **res[name])
+        r = res[name]
+        if not (r["finite"] and r["grad_norm"] > 0 and r["subset_loss_rel_err"] <= POINT_LOSS_REL_TOL
+                and r["subset_grad_rel_l2"] <= POINT_LOSS_REL_TOL):
+            fail(f"point loss {name}: {r}")
+    return res
+
+
 # the kernels on wgmma / TMA / mbarriers, one name a template instance: the forward and dk/dv as <DC, EDGE> (64-column
 # chunks of the head dim; a last chunk partly past D)
 HOPPER_KERNELS = tuple(f"{kernel}<{dc},{edge}>" for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -3306,6 +3914,9 @@ def main(argv=None):
     # several fp32 (N, M) tensors)
     bwd_cases = {name: bwd_case(name, shape, None, seed=20 + i, on_path=True)
                  for i, (name, shape) in enumerate(FT_SHAPES.items())}
+    # the ViT-g shapes of phase 22's nested-giant fine-tuning (B=1)
+    bwd_cases.update({name: bwd_case(name, TRAIN_FWD_SHAPES[name], None, seed=32 + i, on_path=True, iters=5)
+                      for i, name in enumerate(("vitg_local_b1", "vitg_global_b1"))})
     bwd_extra = [bwd_case("vitl_global_b2_kv_len", (2, 16, S * 721, S * 721), [2911, S * 721], seed=29, on_path=False),
                  bwd_case("vitg_global", SHAPES["vitg_global"], None, seed=30, on_path=False, iters=5),
                  bwd_case("vitl_local_b1_scale_0.1", FT_SHAPES["vitl_local_b1"], None, seed=31, on_path=False,
@@ -3610,6 +4221,7 @@ def main(argv=None):
     tr_profile = device_profile(lambda: trainer.run(trainer.init_state(), iter([batch]), max_steps=1))
     emit("train_profile", **tr_profile,
          device_busy_share_of_unprofiled_step=tr_profile["device_busy_ms"] / tr_res["ms_mean"])
+    emit("train_bn_forms", **bn_form_pairs(trainer, batch))
     prod.eval()
     del trainer, prod
     torch.cuda.empty_cache()
@@ -3630,6 +4242,11 @@ def main(argv=None):
     serve_res = serve_phase(api_res.pop("api"), smi, dict(fwd_case_of), det_fps_case_of, exchange_us,
                             loop_full.pop("kept"), det_res["param_table_total"])
     torch.cuda.empty_cache()
+    # 22. the rest of training: nested-giant-large fine-tuned unfrozen under each remat policy, data parallelism,
+    # the point losses
+    nested_res, nested_launches = nested_finetune_phase(dict(fwd_case_of), bwd_case_of, fps_case_of, smi)
+    dp_res = data_parallel_phase(dict(fwd_case_of), det_fps_case_of, tiny_fwd_case_of, tiny_fps_case_of)
+    point_res = point_loss_phase()
     # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
@@ -3870,6 +4487,17 @@ def main(argv=None):
         launches_inference_mmdet3d=sum(serve_res["d"]["launches"]["fps"].values()), cli_nuscenes_shapes=cli_fps,
         max_abs_err=max(table["kernels"][1]["max_abs_err"], max(c["max_abs_err"] for c in cli_fps)))
     table["serve"] = serve_res
+    # phase 22: the launches of one timed nested-giant fine-tuning step under each policy
+    for row, kind in ((table["kernels"][0], "fwd"), (table["kernels"][1], "fps"),
+                      (next(r for r in table["kernels"] if r["name"] == "flash_bwd_dq"), "dq"),
+                      (next(r for r in table["kernels"] if r["name"] == "flash_bwd_dkv"), "dkv")):
+        row["launches_nested_finetune_step"] = {p: sum(l[kind].values()) for p, l in nested_launches.items()}
+        if kind in ("dq", "dkv"):
+            for shape in row["shapes"]:
+                shape["launches_nested_finetune_step"] = nested_launches["block"][kind].get(tuple(shape["shape"]), 0)
+    table["nested_finetune"] = nested_res
+    table["data_parallel"] = dp_res
+    table["point_losses"] = point_res
     short_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_short_fwd")
     short_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
                      max_abs_err=max(short_row["max_abs_err"], api_res["f32_case"]["errors"]["short"]["max_abs_err"]))

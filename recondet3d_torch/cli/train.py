@@ -1,13 +1,26 @@
 """ResDet3D training entry point (port of ``recondet3d/cli/train.py``).
 
     python -m recondet3d_torch.cli.train configs/resdet3d_tiny_centerhead_test.py --work-dir work_dirs/tiny \\
-        [--max-steps N] [--resume-from CKPT] [--checkpoint-interval N] [--device cpu] [--cfg-options k=v ...]
+        [--max-steps N] [--resume-from CKPT] [--checkpoint-interval N] [--device cpu] [--num-devices N] \\
+        [--autoscale-lr] [--cfg-options k=v ...]
 
 Config -> model (``build_model_from_cfg``) -> nuScenes dataset -> ``Trainer``
-over ``data_iterator``'s batches, one sample a step (one device), with a
-log line ``step N: loss=... grad_norm=... <each loss>=... steps_per_sec=...``
-a step and the final checkpoint in ``<work-dir>/checkpoints``. Runs on the
+over ``data_iterator``'s batches, one sample a device a step, with a log
+line ``step N: loss=... grad_norm=... <each loss>=... steps_per_sec=...`` a
+step and the final checkpoint in ``<work-dir>/checkpoints``. Runs on the
 GPU unless ``--device cpu``.
+
+Data parallelism (``--num-devices N``, as the JAX CLI's mesh of N devices):
+one process a device, a global batch of N samples a step (rank r reads
+the r-th of each, so the samples go in the JAX CLI's order), ``total_steps``
+counted in global batches, the batch statistics over the global batch
+(``train/trainer.py``) and ``--autoscale-lr`` scaling the rate by N / 8.
+Without a launcher the CLI starts its N workers itself
+(``torch.multiprocessing.spawn``: NCCL on ``cuda:0`` .. ``cuda:N-1``, or
+gloo on the CPU with ``--device cpu``); under ``torchrun`` it joins the
+group it finds there. Where fewer than N CUDA devices are visible it
+raises, naming both counts: it never trains on fewer devices or on the CPU
+instead. Only rank 0 prints the log lines and writes checkpoints.
 
 Resume (``--resume-from``, or else the work dir's latest checkpoint)
 restores the model, the optimizer and the step, then trains on to the
@@ -31,12 +44,14 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
+import socket
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
+from recondet3d_torch.parallel import autoscale_lr, init_distributed, is_main_process, make_mesh, process_device
 from recondet3d_torch.utils.device import resolve_device
 
 __all__ = ["build_model_from_cfg", "parse_args", "data_iterator", "main"]
@@ -49,7 +64,7 @@ _REF_UNREAD = ("loss_weight",)
 _BK_CASTS = (("process_res", int), ("num_points", int), ("gt_num_points", int), ("bq_anchor_points", int),
              ("bq_sample_num", int), ("max_depth", float), ("bq_max_radius", float), ("voxel_pre_reduce", float),
              ("pre_reduce_cap", int), ("ref_view_strategy", str), ("use_ray_pose", bool), ("freeze_da3", bool))
-_BK_KNOWN = {"type", "pretrained", "cache_dir", "refinement", "filter_range"}
+_BK_KNOWN = {"type", "pretrained", "cache_dir", "refinement", "filter_range", "remat_policy"}
 _BK_KNOWN |= {k for k, _ in _BK_CASTS}
 
 
@@ -60,8 +75,11 @@ def build_model_from_cfg(cfg, device="cuda", generator: Optional[torch.Generator
 
     ``compute_dtype`` (default bfloat16) is the compute dtype of DA3's trunk
     and of the refinement; ``reconstruction_backbone.freeze_da3=False``
-    builds DA3 for fine-tuning (fp32 master parameters, blocks under
-    activation checkpointing). Unknown refinement, backbone or head keys
+    builds DA3 for fine-tuning (fp32 master parameters, activations
+    recomputed in the backward pass by ``reconstruction_backbone.remat_policy``:
+    ``block``, the default, ``global``, ``attn`` or ``dots``; on the train
+    CLI ``--cfg-options model.reconstruction_backbone.remat_policy=dots``
+    sets it). Unknown refinement, backbone or head keys
     raise ValueError, as in the JAX package."""
     from recondet3d_torch.models.da3 import build_da3
     from recondet3d_torch.models.detect import ReconstructionBackbone, ResDet3D
@@ -111,7 +129,9 @@ def build_model_from_cfg(cfg, device="cuda", generator: Optional[torch.Generator
         if "tasks" in head_cfg:
             head_cfg["tasks"] = tuple(tuple(t) for t in head_cfg["tasks"])
 
-    tuned = {} if freeze else dict(param_dtype=torch.float32, remat=True)
+    tuned = dict(remat_policy=str(rb.get("remat_policy", "block")))
+    if not freeze:
+        tuned.update(param_dtype=torch.float32, remat=True)
     da3 = build_da3(rb.get("pretrained", "da3-large"), dtype=dtype, device=dev, generator=generator, with_gs=False,
                     **tuned)  # no Gaussian-splat head: the detector never calls it
     refinement = SparseRefinement(dtype=dtype, device=dev, **ref_kwargs)
@@ -145,7 +165,8 @@ def parse_args(argv=None):
         "at flagship scale each save writes several GB")
     p.add_argument("--autoscale-lr", action="store_true")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="data-parallel devices; the port trains on one (ROADMAP item 11 ports data parallelism)")
+                   help="data-parallel devices, one process and one sample each (default: the launcher's world "
+                        "size, or 1)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--cfg-options", nargs="*", default=[])
     return p.parse_args(argv)
@@ -185,7 +206,7 @@ def _load_sample(dataset, i, num_points_gt, img_hw, n_cams, max_objs):
 
 
 def data_iterator(dataset, num_points_gt: int, img_hw, n_cams: int, epochs: int, batch_size: int = 1,
-                  max_objs: int = 0, start: int = 0):
+                  max_objs: int = 0, start: int = 0, rank: int = 0, num_ranks: int = 1):
     """Host-side loader: batches of ``batch_size`` samples, dicts of CPU
     tensors ``img`` (B, n_cams, H, W, 3) float32 RGB 0..255 resized to
     ``img_hw``, ``cam2lidar_rts`` (B, n_cams, 4, 4), ``gt_points``
@@ -194,12 +215,18 @@ def data_iterator(dataset, num_points_gt: int, img_hw, n_cams: int, epochs: int,
     ``gt_bboxes_valid`` (B, max_objs). Samples go in dataset order,
     ``epochs`` times over, from sample ``start`` of that sequence: the JAX
     iterator's order and values (images resized by
-    ``image_io.resize_bilinear``, the same bits as cv2.resize).
+    ``image_io.resize_bilinear``, the same bits as cv2.resize). With
+    ``num_ranks`` > 1 the sequence is cut into global batches of
+    ``batch_size * num_ranks`` samples and this iterator yields ``rank``'s
+    share of each (samples ``rank * batch_size`` .. of it, ``shard_batch``'s
+    split); ``start`` counts samples of the whole sequence.
 
     One sample is loaded ahead on a worker thread (file reads, decode and
     resize release the GIL), the port's stand-in for the JAX package's
     native prefetch loader."""
     order = itertools.islice((i for _ in range(epochs) for i in range(len(dataset))), start, None)
+    if num_ranks > 1:
+        order = (i for j, i in enumerate(order) if (j // batch_size) % num_ranks == rank)
     load = lambda i: _load_sample(dataset, i, num_points_gt, tuple(img_hw), n_cams, max_objs)  # noqa: E731
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="recondet3d-loader")
     try:
@@ -218,7 +245,7 @@ def data_iterator(dataset, num_points_gt: int, img_hw, n_cams: int, epochs: int,
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def _load_pretrained_da3(model, rb_cfg):
+def _load_pretrained_da3(model, rb_cfg, say=print):
     """DA3 weights from the config's ``cache_dir`` (reference: api.py:76-90,
     PyTorchModelHubMixin into ckpts/): a checkpoint found there, or fetched
     from the hub for an ``org/name`` preset, fills the DA3 net; without one
@@ -234,28 +261,76 @@ def _load_pretrained_da3(model, rb_cfg):
     if ckpt is None and "/" in name:
         ckpt = download_checkpoint(name, cache_dir)
     if ckpt is None:
-        print(f"WARNING: no DA3 checkpoint for {name!r} in {cache_dir!r}; training with randomly initialized DA3",
+        say(f"WARNING: no DA3 checkpoint for {name!r} in {cache_dir!r}; training with randomly initialized DA3",
               flush=True)
         return
     unused, unfilled = load_da3_state_dict(model.reconstruction_backbone.da3, load_safetensors(ckpt))
     if unfilled:
-        print(f"WARNING: {len(unfilled)} DA3 params not in checkpoint", flush=True)
+        say(f"WARNING: {len(unfilled)} DA3 params not in checkpoint", flush=True)
     if unused:
-        print(f"WARNING: {len(unused)} checkpoint tensors not used", flush=True)
-    print(f"loaded DA3 weights from {ckpt}", flush=True)
+        say(f"WARNING: {len(unused)} checkpoint tensors not used", flush=True)
+    say(f"loaded DA3 weights from {ckpt}", flush=True)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _check_devices(device, n: int, local: Optional[int] = None) -> None:
+    """Refuse where fewer CUDA devices are visible than this host's ``local``
+    processes need (default ``n``, all of them: the CLI starts them itself).
+    Under a launcher ``local`` is the launcher's count on this host, so a
+    group across hosts is held to each host's own devices."""
+    local = n if local is None else local
+    if torch.device(device).type == "cuda" and torch.cuda.device_count() < local:
+        where = "" if local == n else f" ({local} of them on this host)"
+        raise RuntimeError(f"--num-devices {n} needs {local} CUDA devices{where}, but {torch.cuda.device_count()} "
+                           "are visible; pass --device cpu to train on the CPU")
+
+
+def _worker(rank: int, argv, n: int, port: int) -> None:
+    """One of the N processes that ``main`` starts without a launcher."""
+    args = parse_args(argv)
+    os.environ["LOCAL_RANK"] = str(rank)
+    init_distributed(args.device, init_method=f"tcp://127.0.0.1:{port}", world_size=n, rank=rank)
+    try:
+        _train(args)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def main(argv=None):
+    args = parse_args(argv)
+    n = args.num_devices
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ  # torchrun's environment
+    if n is not None and n > 1 and not launched:
+        _check_devices(args.device, n)
+        torch.multiprocessing.spawn(_worker, args=(argv, n, _free_port()), nprocs=n, join=True)
+        return 0
+    if not launched:
+        return _train(args)
+    world = int(os.environ["WORLD_SIZE"])
+    if n is not None and n != world:
+        raise ValueError(f"--num-devices {n} under a launcher of {world} processes")
+    _check_devices(args.device, world, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    init_distributed(args.device)
+    try:
+        return _train(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _train(args):
     from recondet3d_torch.core.config import load_py_config, parse_cli_overrides
     from recondet3d_torch.data.nuscenes import NuScenesDataset
     from recondet3d_torch.train import Trainer
     from recondet3d_torch.train.checkpoints import latest_checkpoint, load_checkpoint
 
-    args = parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError("--num-devices > 1: the port trains on one device; data-parallel training is "
-                                  "ROADMAP item 11")
-    device = resolve_device(args.device)
+    device = resolve_device(process_device(args.device))
+    main_process = is_main_process()
+    say = print if main_process else (lambda *a, **k: None)
     cfg = load_py_config(args.config, parse_cli_overrides(args.cfg_options))
     work_dir = args.work_dir or cfg.get("work_dir") or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
@@ -270,43 +345,48 @@ def main(argv=None):
                               classes=inner.get("classes"), load_interval=inner.get("load_interval", 1),
                               with_velocity=bool(inner.get("with_velocity", True)))
     total_epochs = int(cfg.get("total_epochs", 8))
-    bs = 1  # one device, one sample a step
+    mesh = make_mesh()
+    bs = mesh.shape["data"]  # the global batch: one sample a device
+    if mesh.group is not None:
+        say(f"data parallel: {bs} ranks over {torch.distributed.get_backend()}, a global batch of {bs}", flush=True)
+    # a step consumes a global batch, so the configured epochs are len(dataset) * epochs / bs steps
     total_steps = args.max_steps or max(1, -(-len(dataset) * total_epochs // bs))
     opt = cfg.get("optimizer", {})
     lr = float(opt.get("lr", 1e-3))
     if args.autoscale_lr:  # reference: tools/train_mmdet3d.py:190-192, lr * total batch / 8
-        lr = lr * bs / 8
+        lr = autoscale_lr(lr, 1, mesh)
     trainer = Trainer(
         model=model, total_steps=total_steps, lr=lr, weight_decay=float(opt.get("weight_decay", 0.01)),
         grad_clip=float(cfg.get("optimizer_config", {}).get("grad_clip", {}).get("max_norm", 100.0)),
-        work_dir=work_dir,
+        work_dir=work_dir, mesh=mesh,
         checkpoint_interval=((args.checkpoint_interval or None) if args.checkpoint_interval is not None
                              else max(1, len(dataset) // bs)))
     state = trainer.init_state()
     resume = args.resume_from or latest_checkpoint(work_dir)
     if resume:
         load_checkpoint(resume, target=state, map_location=device)
-        print(f"resumed from {resume} at step {state.step}", flush=True)
+        say(f"resumed from {resume} at step {state.step}", flush=True)
     else:
-        _load_pretrained_da3(model, cfg["model"]["reconstruction_backbone"])
+        _load_pretrained_da3(model, cfg["model"]["reconstruction_backbone"], say)
 
-    # enough passes over the data to fill total_steps batches
+    # enough passes over the data to fill total_steps global batches
     epochs_needed = max(total_epochs, -(-total_steps * bs // max(len(dataset), 1)))
     head = model.pts_bbox_head
     it = data_iterator(dataset, num_points_gt=model.reconstruction_backbone.gt_num_points, img_hw=(900, 1600),
-                       n_cams=6, epochs=epochs_needed, batch_size=bs,
-                       max_objs=int(head.max_objs) if head is not None else 0, start=state.step * bs)
+                       n_cams=6, epochs=epochs_needed, batch_size=1,
+                       max_objs=int(head.max_objs) if head is not None else 0, start=state.step * bs,
+                       rank=mesh.data_index, num_ranks=bs)
 
     def log(step, m):
         # the JAX CLI's line: the step's metrics by name (a jitted step returns its dict sorted), then steps_per_sec
         keys = sorted(k for k in m if k != "steps_per_sec") + ["steps_per_sec"]
-        print(f"step {step}: " + " ".join(f"{k}={m[k]:.4f}" for k in keys), flush=True)
+        say(f"step {step}: " + " ".join(f"{k}={m[k]:.4f}" for k in keys), flush=True)
 
     if state.step < total_steps:
-        state, _ = trainer.run(state, it, max_steps=total_steps - state.step, log_fn=log)
+        state, _ = trainer.run(state, it, max_steps=total_steps - state.step, log_fn=log, sharded=True)
     it.close()
     path = trainer.save_checkpoint(state)
-    print(f"saved {path}", flush=True)
+    say(f"saved {path}", flush=True)
     return 0
 
 

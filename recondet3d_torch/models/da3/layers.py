@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from recondet3d_torch.ops.attention import flash_attention
 
@@ -198,13 +199,21 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale."""
+    """Pre-norm transformer block with LayerScale.
+
+    ``remat_attn`` (the ViT's ``remat_policy="attn"``, the JAX package's
+    ``nn.remat(Attention)``): while a graph is recorded the attention
+    sub-path (qkv, QK-norm, RoPE, flash, proj) runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass;
+    ``norm1``, the FFN and the norms keep their activations."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=True, proj_bias=True,
                  init_values: Optional[float] = 1.0, qk_norm=False, use_rope=False, rope_freq=100.0,
-                 ffn_layer="mlp", ln_eps=1e-6, dtype=torch.float32, param_dtype=None, device="cuda"):
+                 ffn_layer="mlp", ln_eps=1e-6, dtype=torch.float32, param_dtype=None, remat_attn: bool = False,
+                 device="cuda"):
         super().__init__()
         pdt = param_dtype or dtype
+        self.remat_attn = remat_attn
         self.norm1 = LayerNormFp32(dim, eps=ln_eps, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, proj_bias, qk_norm, use_rope, rope_freq,
                               dtype=dtype, param_dtype=pdt, device=device)
@@ -216,7 +225,10 @@ class Block(nn.Module):
         self.ls2 = LayerScale(dim, init_values, dtype=pdt, device=device) if ls else None
 
     def forward(self, x, pos=None, kv_len=None, rope_tabs=None):
-        h = self.attn(self.norm1(x), pos=pos, kv_len=kv_len, rope_tabs=rope_tabs)
+        if self.remat_attn and torch.is_grad_enabled():
+            h = checkpoint(self.attn, self.norm1(x), pos=pos, kv_len=kv_len, rope_tabs=rope_tabs, use_reentrant=False)
+        else:
+            h = self.attn(self.norm1(x), pos=pos, kv_len=kv_len, rope_tabs=rope_tabs)
         if self.ls1 is not None:
             h = self.ls1(h)
         x = x + h

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from recondet3d_torch.models.da3.dpt import DualDPT
+from recondet3d_torch.parallel.mesh import global_sum
 from recondet3d_torch.utils.alignment import (
     apply_metric_scaling,
     compute_alignment_mask,
@@ -139,8 +140,8 @@ class DepthAnything3Net(nn.Module):
         if "sky" not in output:
             return output
         non_sky = compute_sky_mask(output["sky"], threshold=0.3)
-        n_non_sky = non_sky.sum()
-        n_sky = (~non_sky).sum()
+        n_non_sky = global_sum(non_sky.sum())
+        n_sky = global_sum((~non_sky).sum())
         ok = (n_non_sky > 10) & (n_sky > 10)
         non_sky_max = masked_quantile(output["depth"], non_sky, 0.99)
         clamped, _ = set_sky_regions_to_max_depth(output["depth"], None, non_sky, non_sky_max)
@@ -152,7 +153,8 @@ class NestedDepthAnything3Net(nn.Module):
     """Any-view branch (``da3``) + metric branch (``da3_metric``) with
     least-squares scale alignment. As in the JAX package, the alignment
     statistics (median confidence, scale, sky depth) are taken over the
-    whole batch at once."""
+    whole batch at once: under data parallelism over the global batch
+    (``utils/alignment.py``)."""
 
     def __init__(self, anyview: nn.Module, metric: nn.Module, sky_depth_def: float = 200.0):
         super().__init__()
@@ -177,7 +179,7 @@ class NestedDepthAnything3Net(nn.Module):
             output["depth_conf"], non_sky, output["depth"], metric_depth, median_conf
         )
         scale = least_squares_scale_scalar(metric_depth, output["depth"], mask=align_mask)
-        scale = torch.where(align_mask.sum() > 0, scale, torch.ones_like(scale))
+        scale = torch.where(global_sum(align_mask.sum()) > 0, scale, torch.ones_like(scale))
 
         depth = output["depth"] * scale
         extr = output["extrinsics"].clone()

@@ -12,7 +12,7 @@ from recondet3d_torch.models.da3.dpt import DPT, DualDPT, GSDPT
 from recondet3d_torch.models.da3.gs_adapter import GaussianAdapter
 from recondet3d_torch.models.da3.layers import init_parameters_
 from recondet3d_torch.models.da3.net import DepthAnything3Net, NestedDepthAnything3Net
-from recondet3d_torch.models.da3.vit import DinoViT
+from recondet3d_torch.models.da3.vit import DinoViT, check_remat_policy
 from recondet3d_torch.utils.device import resolve_device
 
 __all__ = ["build_da3", "materialize_", "PRESETS", "MODEL_REGISTRY"]
@@ -78,20 +78,18 @@ def build_da3(name: str, dtype=torch.bfloat16, with_gs: Optional[bool] = None,
     ``dtype`` is the ViT trunk's compute dtype and, unless ``param_dtype``
     says otherwise, its storage dtype; heads are fp32. A model that is
     trained takes ``param_dtype=torch.float32`` (fp32 master parameters,
-    cast to ``dtype`` at use) and ``remat=True`` (every trunk block under
-    activation checkpointing, the JAX package's ``remat_policy="block"``;
-    its other policies are not ported).
+    cast to ``dtype`` at use) and ``remat=True`` (activations recomputed in
+    the backward pass by ``remat_policy``: ``block``, the default, every
+    trunk block under activation checkpointing; ``global``, ``attn`` or
+    ``dots``, see ``vit.py``; a name outside these raises ValueError).
     ``device`` defaults to CUDA and raises where CUDA is absent; ``"meta"``
     builds shapes only (``materialize_``).
     ``with_gs`` builds the Gaussian-splat head (``GSDPT`` + ``GaussianAdapter``);
     ``None`` takes the preset's default, as the JAX package does: da3-giant and
     the nested net build it, the other presets do not.
     """
-    if remat_policy != "block":
-        raise NotImplementedError(f"remat_policy={remat_policy!r} is not ported yet (ROADMAP §1 item 11); "
-                                  "'block' is")
     dev = resolve_device(device)
-    vit_kw = dict(param_dtype=param_dtype, remat=remat)
+    vit_kw = dict(param_dtype=param_dtype, remat=remat, remat_policy=check_remat_policy(remat_policy))
     key = name.split("/")[-1].lower()
     if key in ("da3metric-large", "da3mono-large"):
         build = lambda d: _monocular(dtype, d, **vit_kw)

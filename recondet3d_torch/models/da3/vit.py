@@ -6,22 +6,38 @@ reference-view reorder for S >= 3 views and ``cat_token`` outputs.
 Local attention batches views ((B*S, N, C)); global attention concatenates
 them into one sequence ((B, S*N, C)); both are one flash-attention call.
 
-``remat=True`` (the JAX package's ``remat`` with ``remat_policy="block"``)
-runs every block under ``torch.utils.checkpoint`` while a graph is
-recorded: a block's activations are recomputed in the backward pass instead
-of being kept, so a fine-tuning step holds one block's activations at a
-time. ``param_dtype`` stores the trunk's parameters wider than it computes
-(fp32 master parameters for training, see ``layers.py``).
+``remat=True`` recomputes activations in the backward pass instead of
+keeping them, while a graph is recorded, by the JAX package's four
+``remat_policy`` names:
+
+- ``block`` (default): every block under ``torch.utils.checkpoint``, so a
+  fine-tuning step holds one block's activations at a time;
+- ``global``: only the global-attention blocks (``i >= alt_start``, odd
+  ``i``); the local blocks keep their activations and are not recomputed;
+- ``attn``: in every block only the attention sub-path (``Block.remat_attn``);
+- ``dots``: every block under selective checkpointing that keeps the outputs
+  of the products without batch dims (``aten.mm`` / ``aten.addmm``: the
+  qkv, proj and FFN projections) and recomputes everything else, the JAX
+  package's ``dots_with_no_batch_dims_saveable``. The flash kernels are
+  launched through ctypes, invisible to that policy, so their forward runs
+  again on recompute, as the Pallas call does under the JAX policy; its
+  outputs are new tensors each time.
+
+Every policy runs each checkpointed block's forward twice and its backward
+once; none changes the arithmetic. ``param_dtype`` stores the trunk's
+parameters wider than it computes (fp32 master parameters for training, see
+``layers.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from recondet3d_torch.models.da3.layers import Block, LayerNormFp32, PatchEmbed, rope_tables
 from recondet3d_torch.utils.constants import THRESH_FOR_REF_SELECTION
@@ -30,6 +46,8 @@ from recondet3d_torch.utils.interpolation import interpolate_nchw
 __all__ = [
     "DinoViT",
     "VIT_PRESETS",
+    "REMAT_POLICIES",
+    "check_remat_policy",
     "select_reference_view",
     "reorder_by_reference",
     "restore_original_order",
@@ -41,6 +59,23 @@ VIT_PRESETS = {
     "vitl": dict(embed_dim=1024, depth=24, num_heads=16),
     "vitg": dict(embed_dim=1536, depth=40, num_heads=24),
 }
+
+
+REMAT_POLICIES = ("block", "global", "attn", "dots")
+
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)  # what F.linear reaches
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat_policy(policy: str) -> str:
+    """``policy`` if it is one of ``REMAT_POLICIES``; ValueError otherwise
+    (the JAX package takes a name it does not know as ``block``)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; one of {', '.join(REMAT_POLICIES)}")
+    return policy
 
 
 def _normalize_metric(m, dim=1, eps=1e-8):
@@ -109,16 +144,21 @@ def restore_original_order(x, b_idx):
     return _gather_views(x, _restore_indices(b_idx, x.shape[1]))
 
 
+def _clear_pe_cache(module, _keys):
+    module._pe_cache.clear()
+
+
 class DinoViT(nn.Module):
     """Multi-view DINOv2 trunk returning features at ``out_layers``."""
 
     def __init__(self, name_preset="vits", out_layers: Sequence[int] = (5, 7, 9, 11), alt_start=-1,
                  qknorm_start=-1, rope_start=-1, rope_freq=100.0, cat_token=True, patch_size=14,
                  img_size=518, num_register_tokens=0, interpolate_offset=0.1, dtype=torch.float32,
-                 param_dtype=None, remat: bool = False, device="cuda"):
+                 param_dtype=None, remat: bool = False, remat_policy: str = "block", device="cuda"):
         super().__init__()
         pdt = param_dtype or dtype
         self.remat = remat
+        self.remat_policy = check_remat_policy(remat_policy)
         p = VIT_PRESETS[name_preset]
         self.embed_dim = C = p["embed_dim"]
         self.depth = p["depth"]
@@ -148,13 +188,14 @@ class DinoViT(nn.Module):
                 C, self.num_heads, mlp_ratio=4.0, init_values=1.0,
                 qk_norm=(qknorm_start != -1 and i >= qknorm_start),
                 use_rope=(rope_start != -1 and i >= rope_start),
-                rope_freq=rope_freq, ffn_layer=ffn, ln_eps=1e-6, dtype=dtype, param_dtype=pdt, device=device,
+                rope_freq=rope_freq, ffn_layer=ffn, ln_eps=1e-6, dtype=dtype, param_dtype=pdt,
+                remat_attn=remat and remat_policy == "attn", device=device,
             )
             for i in range(self.depth)
         )
         self.norm = LayerNormFp32(C, eps=1e-5, device=device)
         # whatever replaces the parameter's storage drops the resized copy kept by _interp_pos_embed
-        self.register_load_state_dict_post_hook(lambda module, _keys: module._pe_cache.clear())
+        self.register_load_state_dict_post_hook(_clear_pe_cache)
 
     def _apply(self, fn, *args, **kwargs):
         self._pe_cache.clear()
@@ -196,6 +237,12 @@ class DinoViT(nn.Module):
         if not torch.is_grad_enabled():
             self._pe_cache = {key: pe}
         return pe
+
+    def _checkpointed(self, is_global: bool) -> bool:
+        """Whether a block runs under a block-level checkpoint ('attn' checkpoints inside the block)."""
+        if not self.remat or self.remat_policy == "attn":
+            return False
+        return is_global or self.remat_policy != "global"
 
     def forward(self, x, cam_token=None, export_feat_layers: Sequence[int] = (),
                 ref_view_strategy: str = "saddle_balanced"):
@@ -259,8 +306,10 @@ class DinoViT(nn.Module):
             is_global = alt != -1 and i >= alt and i % 2 == 1
             tokens_in = xt.reshape(B, S * n_tok, C) if is_global else xt.reshape(B * S, n_tok, C)
             tabs = (g_tabs if is_global else l_tabs) if rope_on else None
-            if self.remat and torch.is_grad_enabled():
-                xt = checkpoint(blk, tokens_in, rope_tabs=tabs, use_reentrant=False).reshape(B, S, n_tok, C)
+            if self._checkpointed(is_global) and torch.is_grad_enabled():
+                ctx = {} if self.remat_policy != "dots" else dict(
+                    context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+                xt = checkpoint(blk, tokens_in, rope_tabs=tabs, use_reentrant=False, **ctx).reshape(B, S, n_tok, C)
             else:
                 xt = blk(tokens_in, rope_tabs=tabs).reshape(B, S, n_tok, C)
             if not is_global:

@@ -19,7 +19,7 @@ __all__ = ["ReconstructionBackbone", "ResDet3D", "CenterHead", "Anchor3DHead", "
 
 def build_resdet3d(preset: str = "da3nested-giant-large", dtype=torch.bfloat16, device="cuda",
                    generator: Optional[torch.Generator] = None, refinement: Optional[dict] = None,
-                   freeze_da3: bool = True, **backbone_kwargs) -> ResDet3D:
+                   freeze_da3: bool = True, remat_policy: str = "block", **backbone_kwargs) -> ResDet3D:
     """ResDet3D over the DA3 ``preset`` with random weights drawn from
     ``generator`` (default: seed 0 on ``device``), in eval mode.
 
@@ -29,8 +29,9 @@ def build_resdet3d(preset: str = "da3nested-giant-large", dtype=torch.bfloat16, 
     values it at its defaults, ``False`` builds none. ``freeze_da3=False``
     builds the model for fine-tuning: gradients flow through DA3, whose
     trunk then holds fp32 master parameters (computing in ``dtype``) and
-    runs every block under activation checkpointing; the default build and
-    its request time are those of inference. Other keywords go to
+    recomputes its activations in the backward pass by ``remat_policy``
+    (``block``, ``global``, ``attn`` or ``dots``: ``models/da3/vit.py``); the
+    default build and its request time are those of inference. Other keywords go to
     ``ReconstructionBackbone``. ``device`` defaults to CUDA and raises
     where CUDA is absent; pass ``device="cpu"`` to run the plain paths.
     """
@@ -38,6 +39,7 @@ def build_resdet3d(preset: str = "da3nested-giant-large", dtype=torch.bfloat16, 
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     tuned = dict(param_dtype=torch.float32, remat=True) if not freeze_da3 else {}
+    tuned["remat_policy"] = remat_policy
     # the detector never calls the Gaussian-splat head, and the JAX package's ResDet3D has no parameters for it
     da3 = build_da3(preset, dtype=dtype, device=dev, generator=generator, with_gs=False, **tuned)
     ref = None

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from recondet3d_torch.core.post_processing import box3d_multiclass_nms
+from recondet3d_torch.parallel.mesh import data_parallel_size, global_sum
 
 __all__ = ["Anchor3DHead", "generate_anchors_3d", "delta_encode", "delta_decode", "get_direction_target"]
 
@@ -211,7 +212,8 @@ class Anchor3DHead(nn.Module):
         box = preds["bbox_pred"].reshape(B, -1, self.box_code_size)
         labels, lw = targets["labels"], targets["label_weights"]
         tgt, bw = targets["bbox_targets"], targets["bbox_weights"]
-        num_pos = (bw > 0).sum().float().clamp(min=1.0)
+        # the positives of the global batch, over the rank count: see CenterHead.loss
+        num_pos = global_sum((bw > 0).sum().float()).clamp(min=1.0) / data_parallel_size()
 
         onehot = F.one_hot(labels, self.num_classes + 1)[..., :self.num_classes].float()  # background -> zeros
         p = torch.sigmoid(cls)

@@ -18,6 +18,12 @@ Targets are drawn vectorised (max over a static ``max_objs`` of per-object
 gaussians), as in the JAX package; decode takes the per-task top-K and the
 NMS's IoU matrix on the predictions' device, and walks the greedy NMS and
 returns numpy arrays on the host.
+
+Under data parallelism (``parallel/mesh.py``) the losses' normalisers, the
+heatmap's positive count and the boxes' mask count, are the global batch's
+(summed over the ranks), as GSPMD computes them, and each rank's loss is its
+share of the global loss times the rank count, which DDP's gradient average
+turns back into the global loss's gradient.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from recondet3d_torch.models.refine.bev_unet import FlaxBatchNorm2d
+from recondet3d_torch.parallel.mesh import data_parallel_size, global_sum
 
 __all__ = ["CenterHead", "gaussian_radius", "draw_heatmap", "init_head_parameters_", "DEFAULT_TASKS"]
 
@@ -215,7 +222,10 @@ class CenterHead(nn.Module):
             neg_w = (1 - hm_gt) ** 4
             pos_loss = -torch.log(hm_pred) * (1 - hm_pred) ** 2 * pos
             neg_loss = -torch.log(1 - hm_pred) * hm_pred ** 2 * neg_w * (1 - pos)
-            n_pos = pos.sum().clamp(min=1.0)
+            # the normalisers count the global batch, as GSPMD's sums do; divided by the rank count they make a rank's
+            # loss its share times that count, which DDP's average turns back into the global loss (parallel/mesh.py)
+            dp = data_parallel_size()
+            n_pos = global_sum(pos.sum()).clamp(min=1.0) / dp
             losses[f"task{ti}_loss_heatmap"] = (pos_loss.sum() + neg_loss.sum()) / n_pos * self.loss_cls_weight
 
             reg_pred = torch.cat([pred["reg"], pred["height"], pred["dim"], pred["rot"], pred["vel"]], dim=-1)
@@ -224,7 +234,8 @@ class CenterHead(nn.Module):
             mask = tgt["mask"].float()[..., None]
             cw = torch.tensor(self.code_weights, dtype=torch.float32, device=reg_pred.device)
             l1 = (picked - tgt["anno"]).abs() * mask * cw
-            losses[f"task{ti}_loss_bbox"] = l1.sum() / (mask.sum() * C).clamp(min=1.0) * self.loss_bbox_weight
+            n_box = (global_sum(mask.sum()) * C).clamp(min=1.0) / dp
+            losses[f"task{ti}_loss_bbox"] = l1.sum() / n_box * self.loss_bbox_weight
         return losses
 
     # ------------------------------------------------------------------ decode

@@ -3,7 +3,10 @@
 BCE-with-logits by default, focal with alpha / gamma, dice over the
 flattened spatial dims, per-channel weights, mean / sum / none reductions,
 ``loss_weight`` scaling. Predictions and targets are (B, H, W, C)
-channels-last; everything is computed in fp32.
+channels-last; everything is computed in fp32. Under data parallelism the
+``mean`` of a rank's equal share is already what ``DistributedDataParallel``
+averages into the global batch's mean; ``sum`` is multiplied by the number
+of ranks.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from recondet3d_torch.parallel.mesh import data_parallel_size
 
 __all__ = ["OccupancyLoss", "binary_cross_entropy_with_logits"]
 
@@ -68,6 +73,6 @@ class OccupancyLoss:
             loss = loss * torch.tensor(self.channel_weights, dtype=loss.dtype, device=loss.device)
         if reduction == "mean":
             loss = loss.mean()
-        elif reduction == "sum":
-            loss = loss.sum()
+        elif reduction == "sum":  # a rank's share of the global batch's sum, times the rank count (parallel/mesh.py)
+            loss = loss.sum() * data_parallel_size()
         return loss * self.loss_weight

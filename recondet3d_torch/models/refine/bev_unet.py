@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from recondet3d_torch.parallel.mesh import data_parallel_size, global_sum
 from recondet3d_torch.utils.interpolation import interpolate_nchw
 
 __all__ = ["BEVHeightOccupancy", "FlaxBatchNorm2d"]
@@ -40,9 +41,13 @@ class _Conv(nn.Conv2d):
 class FlaxBatchNorm2d(nn.Module):
     """Batch norm over NCHW in fp32, as flax's ``nn.BatchNorm`` (the U-Net's:
     eps 1e-3, momentum 0.99). Eval mode: the running statistics. Train mode:
-    the batch mean and biased variance, and ``running = momentum * running +
-    (1 - momentum) * batch`` with, as in flax, the biased variance
-    (``F.batch_norm`` would move ``running_var`` towards the unbiased one)."""
+    the batch's statistics in the form flax computes them, mean = E[x] and
+    var = max(0, E[x^2] - E[x]^2) (its ``use_fast_variance``), over every
+    rank's batch under data parallelism (the two sums all-reduced, the ranks'
+    shares equal); y = (x - mean) * (rsqrt(var + eps) * weight) + bias as flax
+    forms it, and ``running = momentum * running + (1 - momentum) * batch``
+    with, as in flax, the biased variance (``F.batch_norm`` would move
+    ``running_var`` towards the unbiased one)."""
 
     def __init__(self, channels, device=None, momentum: float = 0.99, eps: float = 1e-3):
         super().__init__()
@@ -57,11 +62,14 @@ class FlaxBatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
+        n = x.numel() // x.shape[1] * data_parallel_size()
+        mean = global_sum(x.sum(dim=(0, 2, 3))) / n
+        var = torch.clamp(global_sum((x * x).sum(dim=(0, 2, 3))) / n - mean * mean, min=0.0)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
-        return F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class _ChannelAttention(nn.Module):

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from recondet3d_torch.parallel.mesh import global_sum
 from recondet3d_torch.ops.sparse_conv import (
     SparseTensor,
     _out_grid,
@@ -35,7 +36,9 @@ class MaskedBatchNorm(nn.Module):
     input's dtype. In eval mode it uses its running statistics. In train
     mode it normalises with the mean and the biased variance of the rows
     that ``mask`` marks valid (one batch-global pair, whatever the batch
-    size) and moves the running statistics towards them:
+    size; under data parallelism the rows of every rank, two passes as in
+    the JAX package: the count and sum, then the squared deviations, each
+    summed over the ranks) and moves the running statistics towards them:
     ``running = momentum * running + (1 - momentum) * batch`` with the flax
     momentum 0.99."""
 
@@ -53,9 +56,9 @@ class MaskedBatchNorm(nn.Module):
             if mask is None:
                 raise ValueError("MaskedBatchNorm in train mode needs the validity mask of its rows")
             m = mask.to(torch.float32)[:, None]
-            n = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(dim=0) / n
-            var = ((xf - mean) ** 2 * m).sum(dim=0) / n
+            n = global_sum(m.sum()).clamp(min=1.0)
+            mean = global_sum((xf * m).sum(dim=0)) / n
+            var = global_sum(((xf - mean) ** 2 * m).sum(dim=0)) / n
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)

@@ -8,7 +8,9 @@ computes it outside any hand-written kernel).
 
 The contracts are those of the JAX functions: a neighbour-map entry is the
 row of the neighbour or N; a strided conv ranks its output cells by
-ascending (b, y, x, z) id and keeps the lowest ``max_out``. The lookups
+ascending (b, y, x, z) id and keeps the lowest ``max_out`` of the batch,
+under data parallelism of the global batch (the earlier ranks' cells
+first, as the batch index leads the id). The lookups
 are one sort plus ``torch.searchsorted`` over linear cell ids; no table
 over the dense grid is built, and nothing is read back from the device.
 
@@ -27,6 +29,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from recondet3d_torch.parallel.mesh import get_active_mesh, global_cat
 
 __all__ = [
     "SparseTensor",
@@ -162,6 +166,18 @@ def _out_grid(grid, kernel, stride, padding) -> Tuple[int, int, int]:
     return tuple((g + 2 * p - k) // s + 1 for g, k, s, p in zip(grid, kernel, stride, padding))
 
 
+def _rank_quota(n_cells: torch.Tensor, max_out: int) -> torch.Tensor:
+    """How many of this rank's ``n_cells`` (1,) output cells the cap keeps.
+    The cap is the global batch's, as in the JAX package: the batch index
+    leads the cell ids, so the lowest ``max_out`` ids of the global batch
+    are the earlier ranks' cells first. Without data parallelism: ``max_out``."""
+    counts = global_cat(n_cells)
+    if counts.shape[0] == 1:
+        return torch.full_like(n_cells, max_out)
+    earlier = counts[:get_active_mesh().data_index].sum()
+    return (max_out - earlier).clamp(min=0)
+
+
 def _downsample_gather_map(coords, *, grid, batch_size, kernel, stride, padding, max_out, with_bwd=True):
     """Output coords (max_out, 4), (max_out, K) gather rows: entry (m, k)
     is the input row whose voxel sits at tap k of output voxel m, or N; and
@@ -198,6 +214,7 @@ def _downsample_gather_map(coords, *, grid, batch_size, kernel, stride, padding,
     is_first[1:] = sids[1:] != sids[:-1]
     svalid = sids != sentinel
     rank = torch.cumsum((is_first & svalid).long(), dim=0) - 1
+    svalid &= rank < _rank_quota(rank[-1:] + 1, max_out)
     rank = torch.where(svalid, rank, torch.full_like(rank, max_out)).clamp(max=max_out)
     uniq = torch.full((max_out + 1,), sentinel, dtype=torch.long, device=dev)
     uniq[torch.where(is_first & svalid, rank, torch.full_like(rank, max_out))] = sids

@@ -5,7 +5,8 @@ A checkpoint is ``<work_dir>/checkpoints/step_XXXXXXXX.pt``: the
 ``TrainState``'s step, model state dict (parameters and batch statistics)
 and optimizer state (moments and count), written by ``torch.save``; beside
 it ``step_XXXXXXXX.meta.json`` with the package version, the step and the
-caller's meta dict.
+caller's meta dict. Under data parallelism only rank 0 writes (the ranks
+hold the same state); every rank loads the same file.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from recondet3d_torch.parallel.distributed import is_main_process
+
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint"]
 
 
@@ -25,9 +28,12 @@ def _ckpt_dir(work_dir: str) -> str:
     return d
 
 
-def save_checkpoint(work_dir: str, state, meta: Optional[dict] = None) -> str:
+def save_checkpoint(work_dir: str, state, meta: Optional[dict] = None) -> Optional[str]:
+    """Write ``state``; returns its path, or None on a rank other than 0, which writes nothing."""
     from recondet3d_torch import __version__
 
+    if not is_main_process():
+        return None
     step = int(state.step)
     path = os.path.join(_ckpt_dir(work_dir), f"step_{step:08d}.pt")
     tmp = path + ".tmp"

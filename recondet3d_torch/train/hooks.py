@@ -2,7 +2,7 @@
 augmentation fading, step timing (port of ``recondet3d/train/hooks.py``).
 
 Hooks are callables ``hook(step, state, metrics)`` invoked by the Trainer
-after every step.
+after every step, on every rank; only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from recondet3d_torch.parallel.distributed import is_main_process
 
 logger = logging.getLogger("recondet3d_torch.hooks")
 
@@ -55,7 +57,7 @@ class OccupancyDebugHook:
         os.makedirs(out_dir, exist_ok=True)
 
     def __call__(self, step, state, metrics):
-        if step % self.interval or self.aux_fn is None:
+        if step % self.interval or self.aux_fn is None or not is_main_process():
             return
         aux = self.aux_fn()
         if not aux:

@@ -1,12 +1,27 @@
-"""Training loop on one device (port of ``recondet3d/train/trainer.py``).
+"""Training loop, on one device or data-parallel over ``torch.distributed``
+(port of ``recondet3d/train/trainer.py``).
 
 The JAX package jits one pure ``train_step(state, batch)`` over a mesh. In
 PyTorch the parameters, the batch statistics and the optimizer's moments
 live in the model and the optimizer and are updated in place, so
 ``TrainState`` names them rather than carrying copies, and a step is:
 forward in train mode -> sum of the losses -> backward -> global-norm clip
-and AdamW -> metrics. The mesh, ``shard_batch`` and tensor-parallel layouts
-of the JAX trainer are not ported (ROADMAP §1 item 11, the DDP part).
+and AdamW -> metrics.
+
+Data parallelism. With a mesh over a process group (``parallel/mesh.py``;
+``Trainer`` makes one over the group this process is in) each rank runs
+its shard of the global batch through the model wrapped in
+``DistributedDataParallel``; the step runs under ``local_mesh_context``, so
+the statistics that reduce over the batch are the global batch's, as GSPMD
+computes them in the JAX trainer, and each loss is formed so that DDP's
+average of the gradients is the global loss's gradient. Clipping reads the
+norm of the averaged gradients, and the logged metrics are the global
+batch's (the losses averaged over the ranks). Parameters that
+``frozen_patterns`` freezes are taken out of autograd (``requires_grad``
+False) before wrapping: DDP would otherwise wait for their gradients. The
+state, the optimizer and the checkpoints keep the inner module's parameter
+names; only rank 0 writes checkpoints and TensorBoard logs. The JAX
+trainer's tensor-parallel layouts are not ported (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +33,10 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import torch
 import torch.nn as nn
 
-from recondet3d_torch.train.optim import Optimizer, build_optimizer
+from recondet3d_torch.parallel.distributed import is_main_process
+from recondet3d_torch.parallel.mesh import Mesh, data_parallel_size, global_sum, local_mesh_context, make_mesh, \
+    shard_batch
+from recondet3d_torch.train.optim import Optimizer, build_optimizer, is_frozen
 from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = ["TrainState", "Trainer", "make_train_step"]
@@ -47,7 +65,8 @@ def make_train_step(model: nn.Module, optimizer: Optimizer):
 
     ``model(return_loss=True, **batch)`` must return (losses, aux). Metrics
     are 0-d tensors: ``loss`` (the sum of the losses), ``grad_norm`` (the
-    global norm before clipping) and each loss by its name."""
+    global norm before clipping) and each loss by its name; under an active
+    mesh the losses are averaged over its ranks (the global batch's)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model.train()
@@ -60,7 +79,10 @@ def make_train_step(model: nn.Module, optimizer: Optimizer):
         with stage("optimizer"):
             grad_norm = optimizer.step()
         state.step += 1
-        metrics = {"loss": total.detach(), "grad_norm": grad_norm, **{k: v.detach() for k, v in losses.items()}}
+        dp = data_parallel_size()
+        with torch.no_grad():
+            metrics = {"loss": global_sum(total.detach()) / dp, "grad_norm": grad_norm,
+                       **{k: global_sum(v.detach()) / dp for k, v in losses.items()}}
         return state, metrics
 
     return train_step
@@ -73,7 +95,9 @@ class Trainer:
     ``frozen_patterns``: parameter subtrees left out of the optimizer (the
     reference freezes the DA3 backbone); ``()`` trains everything, the
     fine-tuning mode, which with a model built with ``freeze_da3=False`` is
-    what sends gradients through the flash-attention backward kernels."""
+    what sends gradients through the flash-attention backward kernels.
+    ``mesh``: the data-parallel mesh (default: one over this process's
+    group, 1x1 without one); see the module docstring."""
 
     model: nn.Module
     total_steps: int
@@ -85,12 +109,29 @@ class Trainer:
     checkpoint_interval: Optional[int] = None  # steps
     hooks: tuple = ()
     frozen_patterns: tuple = ("da3",)
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
+        self.mesh = self.mesh or make_mesh()
+        parallel = self.mesh.group is not None
+        if parallel:
+            for name, p in self.model.named_parameters():
+                if is_frozen(name, self.frozen_patterns):
+                    p.requires_grad_(False)
         self.optimizer = build_optimizer(
             self.model.named_parameters(), lr=self.lr, weight_decay=self.weight_decay, total_steps=self.total_steps,
             grad_clip=self.grad_clip, frozen_patterns=self.frozen_patterns)
-        self._step_fn = make_train_step(self.model, self.optimizer)
+        module = self.model
+        if parallel:
+            from torch.nn.parallel import DistributedDataParallel
+
+            device = next(self.model.parameters()).device
+            # the batch statistics are the global batch's on every rank already: no buffers to broadcast; the
+            # parameters no loss reaches (the unused DualDPT branch, the camera encoder without poses) get none
+            module = DistributedDataParallel(
+                self.model, device_ids=[device.index] if device.type == "cuda" else None, broadcast_buffers=False,
+                find_unused_parameters=True, process_group=self.mesh.group)
+        self._step_fn = make_train_step(module, self.optimizer)
         self._writer = None
 
     def init_state(self) -> TrainState:
@@ -100,11 +141,14 @@ class Trainer:
         return TrainState(step=0, model=self.model, optimizer=self.optimizer)
 
     def run(self, state: TrainState, data_iter: Iterable[Dict[str, torch.Tensor]], max_steps: Optional[int] = None,
-            log_fn: Callable[[int, Dict], None] = None):
+            log_fn: Callable[[int, Dict], None] = None, sharded: bool = False):
         """Take up to ``max_steps`` (default ``total_steps``) steps over
-        ``data_iter`` (dicts of tensors, moved to the model's device).
-        Every ``checkpoint_interval`` steps of ``state.step`` a checkpoint
-        is saved. Returns (state, history of logged metrics as floats)."""
+        ``data_iter`` (dicts of tensors, moved to the model's device): global
+        batches, of which each rank takes its shard (``shard_batch``), or,
+        with ``sharded``, this rank's shares already (a loader that reads
+        only this rank's samples). Every ``checkpoint_interval`` steps of
+        ``state.step`` a checkpoint is saved. Returns (state, history of
+        logged metrics as floats)."""
         device = next(self.model.parameters()).device
         writer = self._get_writer()
         n = max_steps or self.total_steps
@@ -113,8 +157,11 @@ class Trainer:
         for i, batch in enumerate(data_iter):
             if i >= n:
                 break
+            if not sharded:
+                batch = shard_batch(self.mesh, batch)
             batch = {k: v.to(device, non_blocking=True) if torch.is_tensor(v) else v for k, v in batch.items()}
-            state, metrics = self._step_fn(state, batch)
+            with local_mesh_context(self.mesh):
+                state, metrics = self._step_fn(state, batch)
             if (i + 1) % self.log_interval == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["steps_per_sec"] = (i + 1) / (time.time() - t0)
@@ -132,6 +179,7 @@ class Trainer:
         return state, history
 
     def save_checkpoint(self, state: TrainState):
+        """The checkpoint's path (None without a work dir, and on every rank but 0, which alone writes)."""
         if self.work_dir is None:
             return None
         from recondet3d_torch.train.checkpoints import save_checkpoint
@@ -139,7 +187,7 @@ class Trainer:
         return save_checkpoint(self.work_dir, state)
 
     def _get_writer(self):
-        if self.work_dir is None:
+        if self.work_dir is None or not is_main_process():
             return None
         if self._writer is None:
             try:

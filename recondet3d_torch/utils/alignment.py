@@ -3,12 +3,17 @@
 Behaviour mirrors the JAX package exactly, including that
 ``masked_quantile`` takes one quantile over the WHOLE tensor: with B > 1
 scenes the nested net's alignment scale is one number for the batch, not
-one per scene.
+one per scene. Under data parallelism it is one number for the global
+batch, as GSPMD computes it: ``masked_quantile`` sorts the values of every
+rank (``global_cat``, the global batch's order) and counts every rank's
+mask, and the least-squares sums are summed over the ranks.
 """
 
 from __future__ import annotations
 
 import torch
+
+from recondet3d_torch.parallel.mesh import global_cat, global_sum
 
 __all__ = [
     "least_squares_scale_scalar",
@@ -25,8 +30,8 @@ def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tens
     invalid entries sort to +inf, the index comes from the valid count, and
     an empty mask gives 0. No host synchronisation."""
     xf = torch.where(mask, x, torch.full_like(x, float("inf"))).reshape(-1).float()
-    xs, _ = torch.sort(xf)
-    n = mask.sum().float()
+    xs, _ = torch.sort(global_cat(xf))
+    n = global_sum(mask.sum().float())
     pos = q * torch.clamp(n - 1.0, min=0.0)
     lo = torch.floor(pos).long()
     hi = torch.ceil(pos).long()
@@ -41,11 +46,11 @@ def least_squares_scale_scalar(a, b, mask=None, eps: float = 1e-12):
     b = b.float()
     if mask is not None:
         m = mask.float()
-        num = torch.sum(a * b * m)
-        den = torch.clamp(torch.sum(b * b * m), min=eps)
+        num = global_sum(torch.sum(a * b * m))
+        den = torch.clamp(global_sum(torch.sum(b * b * m)), min=eps)
     else:
-        num = torch.sum(a * b)
-        den = torch.clamp(torch.sum(b * b), min=eps)
+        num = global_sum(torch.sum(a * b))
+        den = torch.clamp(global_sum(torch.sum(b * b)), min=eps)
     return num / den
 
 

@@ -176,11 +176,12 @@ def test_unported_parts_raise_and_device_rule():
     losses, aux = port.forward_train(img, c2l, torch.zeros(B, 8, 3))
     assert losses == {} and tuple(aux["pseudo_points"].shape) == (B, 256, 3)
     assert port(img, c2l, gt_points=torch.zeros(B, 8, 3), return_loss=True)[0] == {}
-    # of training, the rematerialisation policies other than 'block' are still to port
-    from recondet3d_torch.models.da3 import build_da3
-
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_da3("da3-small", device="cpu", remat=True, remat_policy="dots")
+    # the rematerialisation policies other than 'block' build and run (held to JAX in test_torch_remat.py)
+    tuned = build_resdet3d("da3-small", dtype=torch.float32, device="cpu", refinement=False, freeze_da3=False,
+                           remat_policy="dots", **BACKBONE)
+    assert tuned.reconstruction_backbone.da3.backbone.pretrained.remat_policy == "dots"
+    losses, aux = tuned.forward_train(img, c2l, torch.zeros(B, 8, 3))
+    assert losses == {} and aux["pseudo_points"].requires_grad
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_resdet3d("da3-small")

@@ -345,8 +345,12 @@ def test_entry_points_run_on_the_card_unless_told(structured, tmp_path):
         cli_train.main(args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_test.main([TINY_CFG] + overrides(structured))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_train.main(args + ["--num-devices", "2", "--device", "cpu"])
+    # data parallelism: on CUDA devices unless told (none here), two gloo workers with --device cpu
+    with pytest.raises(RuntimeError, match="--num-devices 2 needs 2 CUDA devices, but 0 are visible"):
+        cli_train.main(args + ["--num-devices", "2"])
+    assert cli_train.main(args + ["--num-devices", "2", "--device", "cpu", "--max-steps", "1",
+                                  "--checkpoint-interval", "0"]) == 0
+    assert load_checkpoint(latest_checkpoint(str(tmp_path / "wd")))["step"] == 1
 
 
 @pytest.fixture(scope="module")
