@@ -238,6 +238,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
             visible cards refused with both counts. (c) ``EMDLoss`` and
             ``ColorLoss`` at 40,000 x 40,000 points forward and backward, ms
             and peak memory, held on a 4,096-point subset to one chunk.
+23. lidar   the LiDAR model zoo (ROADMAP item 14) at published widths, random weights from seed 0, on the
+            street scene's 40,000 points (``assets/bench_sample/reference_points.npz``, a zero fourth channel
+            where a width needs one), each path one warm-up and three timed calls (CUDA events and the host
+            clock, peak memory) and held to the port on the CPU on the same inputs and weights (TF32 off:
+            relative L2 <= 1e-4, indices and voxel rows equal): (a) PointNet++ SSG at VoteNet's widths (four
+            set abstractions from 40,000 points to 2,048 / 1,024 / 512 / 256, two feature propagations of 256,
+            the height feature), its four FPS launches a forward counted, each held to
+            ``furthest_point_sample_plain`` and timed against its bound and the exchange floor (row 2j), each
+            ball query held to the CPU's indices (and its groups of one point counted), a profiled forward, the
+            same net on the scene shrunk ten times (an indoor scan's density, where the groups fill), then a
+            train-mode forward and backward with finite gradients after a warm-up; (b) PointPillars at nuScenes widths (voxels of 0.25 x 0.25 x 8 m at the test capacity of
+            40,000, ``HardVFE`` 64-64, the 400 x 400 scatter, ``SECOND`` 64 / 128 / 256, ``SECONDFPN`` 3 x 128, an
+            ``Anchor3DHead`` of 10 classes on 384 channels, ``get_bboxes``) and the dynamic VFE at the same widths;
+            (c) Part-A2's sparse U-Net at KITTI widths (voxels of 0.05 x 0.05 x 0.1 m, the JAX defaults: grid
+            (41, 1600, 1408), base 16, out 128) and RoI-aware pooling (out 14, max and avg) of its per-voxel
+            features over 128 RoIs from a seed; (d) knn (k = 16, all 40,000 queries; the first 1,024 on the
+            CPU), points in 64 boxes, FPS on a 2,048-point distance matrix and the 'any' ball query on the grid
+            route. Paths (a)-(c) each get one profiled call (device time by kernel class, idle share).
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
@@ -251,7 +269,8 @@ own route (device and host time) and five
 main-path requests, timed by ``recondet3d_torch/tools/kernel_times.py`` in
 four processes, the earlier tree's and this tree's in turns (parent, change,
 change, parent), with the change's median request against the parent's
-quartiles; it fails unless ptxas gives the D = 64 instances the parent's
+quartiles and each tree's median device ms of the requests' stages (cell
+sort, FPS, ball query, ...); it fails unless ptxas gives the D = 64 instances the parent's
 registers.
 
 Needs CUDA; exits non-zero without it (or without the rest of the repo).
@@ -1538,10 +1557,18 @@ def parent_comparison(parent, fps_cases):
     request_stats = {tree: dict(median=float(np.median(v)), quartiles=[float(np.percentile(v, 25)),
                                                                        float(np.percentile(v, 75))])
                      for tree, v in requests.items() if v}
+    # the device ms of those requests' stages (the point path's cell sort, FPS and ball query, ...): each tree's median
+    stage_ms = {tree: defaultdict(list) for tree in ("parent", "change")}
+    for r in runs:
+        for stages in r.pop("request_stage_ms", []):
+            for name, ms in stages.items():
+                stage_ms[r["tree"]][name].append(ms)
+    stage_medians = {tree: {name: float(np.median(v)) for name, v in d.items()} for tree, d in stage_ms.items()}
     emit("parent_comparison", parent=os.path.abspath(parent), runs=runs, registers=registers,
          d64_same_registers=same_registers, fwd_request_mix_change_over_parent=ratio("fwd_request_mix_ms"),
          dq_step_mix_change_over_parent=ratio("dq_step_mix_ms"),
          dkv_step_mix_change_over_parent=ratio("dkv_step_mix_ms"), requests=request_stats,
+         request_stage_ms=stage_medians,
          f32_change_over_parent={f"{kind}_{key}_{name}": ratio(f"f32_{kind}_{key}_ms", name)
                                  for kind in ("fwd", "bwd") for key in ("device", "host") for name in CAM_SHAPES})
     if any(r["fps_indices_sum"] != runs[0]["fps_indices_sum"] for r in runs):
@@ -3803,6 +3830,366 @@ def point_loss_phase():
     return res
 
 
+# phase 23, the LiDAR model zoo (ROADMAP item 14) at published widths, random weights from seed 0, on the street
+# scene's 40,000 points (REFERENCE_POINTS, float16 xyz turned into fp32; a fourth channel, where a width needs one, is
+# zero: the file holds no intensity)
+LIDAR_TIMED = 3  # timed calls of a path, after one warm-up
+# (a) PointNet++ SSG at VoteNet's ScanNet widths (mmdet3d configs/_base_/models/votenet.py, PointNet2SASSG, after its
+# PointSample of 40,000 points): (num_point, radius, samples, MLP) a set abstraction, two feature propagations; the
+# features are the points' height above the cloud's lowest point (VoteNet's use_height)
+VOTENET_SA = ((2048, 0.2, 64, (64, 64, 128)), (1024, 0.4, 32, (128, 128, 256)), (512, 0.8, 16, (128, 128, 256)),
+              (256, 1.2, 16, (128, 128, 256)))
+VOTENET_FP = ((256, 256), (256, 256))
+DENSE_SHRINK = 10.0  # (a) runs on the scene shrunk this many times (an indoor scan's density), then on the scene as it is
+# (b) PointPillars at nuScenes widths (mmdet3d hv_pointpillars_secfpn_sbn-all_4x8_2x_nus-3d.py), B=1, the test capacity;
+# the head's anchor ranges at +-49.6 m and its default size for all ten classes (the per-class sizes are not in the repo)
+PILLARS_VOXEL = dict(voxel_size=(0.25, 0.25, 8.0), point_cloud_range=(-50.0, -50.0, -5.0, 50.0, 50.0, 3.0),
+                     max_num_points=64, max_voxels=(30000, 40000))
+PILLARS_CANVAS, PILLARS_VFE, PILLARS_SECOND = (400, 400), (64, 64), ((64, 128, 256), (3, 5, 5), (2, 2, 2))
+PILLARS_FPN = ((128, 128, 128), (1, 2, 4))
+PILLARS_ANCHOR_RANGE, NUS_CLASSES = (-49.6, -49.6, -1.78, 49.6, 49.6, -1.78), 10
+# (c) Part-A2's sparse U-Net at KITTI widths (mmdet3d hv_PartA2_secfpn_2x8_cyclic_80e_kitti-3d-3class.py; the U-Net at
+# the JAX defaults), then RoI-aware pooling of its per-voxel features over Part-A2's RCNN sample count of RoIs
+PARTA2_VOXEL = dict(voxel_size=(0.05, 0.05, 0.1), point_cloud_range=(0.0, -40.0, -3.0, 70.4, 40.0, 1.0),
+                    max_num_points=5, max_voxels=(16000, 40000))
+PARTA2_ROIS, PARTA2_POOL = 128, (14, 14, 14)
+# (d) the ops at these sizes: knn's k (all 40,000 queries on the card, the first LIDAR_KNN_CPU of them on the CPU),
+# boxes for points_in_boxes, the distance matrix's points and K, the 'any' ball query's radius and samples
+LIDAR_KNN_K, LIDAR_KNN_CPU, LIDAR_BOXES, FPS_DIST_N, FPS_DIST_K, BQ_ANY = 16, 1024, 64, 2048, 1024, (0.5, 16)
+# card against the port on the CPU, same inputs and weights, fp32 with TF32 off: cuDNN and cuBLAS sum in another
+# order. Relative L2 of each path's outputs; indices and voxel rows must be equal.
+LIDAR_REL_TOL = 1e-4
+
+
+def lidar_timed(fn):
+    """One warm-up, then LIDAR_TIMED calls: (the last output, ms of each call between two CUDA events, the same on the
+    host clock, peak device memory in GB over what was allocated before)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, host_ms = [], []
+    for _ in range(LIDAR_TIMED):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ms.append(e0.elapsed_time(e1))
+    return out, ms, host_ms, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def on_cpu(x):
+    """A copy of tensors (nested in tuples, lists and dicts) or of a module on the CPU."""
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x).cpu()
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, (list, tuple)):
+        return type(x)(on_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: on_cpu(v) for k, v in x.items()}
+    return x
+
+
+def groups_of_one(nbr):
+    """The ball-query rows (M, k) whose group holds one point only (every slot the first found index)."""
+    return int((nbr == nbr[:, :1]).all(dim=1).sum())
+
+
+def all_finite(*ts):
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def lidar_phase(smi, exchange_us):
+    """Phase 23: the LiDAR model zoo at published widths on the street scene's 40,000 points, each path one warm-up
+    and LIDAR_TIMED timed calls, held to the port on the CPU on the same inputs and weights: (a) PointNet++ SSG at
+    VoteNet's widths on the scene shrunk DENSE_SHRINK times (where the groups fill) and on the scene as it is, its four
+    FPS launches a forward counted and each held to ``furthest_point_sample_plain`` (timed as row 2j), each ball query
+    to the CPU's indices, then a train-mode forward and backward on the shrunk scene; (b) PointPillars at nuScenes widths
+    through ``get_bboxes``, and the dynamic VFE; (c) the Part-A2 sparse U-Net and RoI-aware pooling; (d) knn, points
+    in boxes, FPS on a distance matrix and the 'any' ball query on the grid route."""
+    from recondet3d_torch.models.detect.anchor3d_head import Anchor3DHead
+    from recondet3d_torch.models.refine.pointnet_modules import PointFPModule, PointSAModule
+    from recondet3d_torch.models.refine.second import SECOND, SECONDFPN, DynamicVFE, HardVFE, PointPillarsScatter
+    from recondet3d_torch.models.refine.sparse_unet import SparseUNet
+    from recondet3d_torch.models.refine.vfe import HardSimpleVFE
+    from recondet3d_torch.ops import (Voxelization, ball_query, dynamic_voxelize, furthest_point_sample_with_dist,
+                                      knn, voxel_centers)
+    from recondet3d_torch.ops.grouping import sq_dist
+    from recondet3d_torch.ops.points_in_boxes import points_in_boxes
+    from recondet3d_torch.ops.roiaware_pool3d import roiaware_pool3d
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 as the JAX package's modules compute on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    xyz = torch.from_numpy(np.load(REFERENCE_POINTS)["points"].astype(np.float32)).cuda()
+    pts4 = torch.cat([xyz, torch.zeros_like(xyz[:, :1])], dim=1)
+    n_pts = xyz.shape[0]
+    res, bad = {"points": n_pts, "nvidia_smi": smi}, []
+
+    def check(ok, what):
+        if not ok:
+            bad.append(what)
+
+    def with_batch(c):  # (V, 3) zyx voxel coords of one sample -> (V, 4) [b, z, y, x], b = -1 on empty slots
+        return torch.cat([torch.where(c[:, :1] >= 0, torch.zeros_like(c[:, :1]), torch.full_like(c[:, :1], -1)), c], 1)
+
+    # (a) PointNet++ SSG at VoteNet's widths
+    torch.manual_seed(0)
+    sa, cin = [], 1
+    for n, r, k, mlp in VOTENET_SA:
+        sa.append(PointSAModule.single(n, r, k, mlp, in_channels=cin, device="cuda"))
+        cin = mlp[-1]
+    fp = [PointFPModule(VOTENET_FP[0], in_channels=VOTENET_SA[2][3][-1] + VOTENET_SA[3][3][-1], device="cuda"),
+          PointFPModule(VOTENET_FP[1], in_channels=VOTENET_SA[1][3][-1] + VOTENET_FP[0][-1], device="cuda")]
+    net = torch.nn.ModuleList(sa + fp).eval()
+
+    def pointnet2(net, x, f):
+        xs, fs, idxs = [x], [f], []
+        for m in net[:len(VOTENET_SA)]:
+            x, f, i = m(x, f)
+            xs.append(x), fs.append(f), idxs.append(i)
+        up = net[len(VOTENET_SA)](xs[3], xs[4], fs[3], fs[4])
+        return xs, fs, idxs, net[len(VOTENET_SA) + 1](xs[2], xs[3], fs[2], up)
+
+    def stage_checks(xs, idxs, tag):
+        """Each set abstraction of one forward: its FPS picks against ``furthest_point_sample_plain`` on the same
+        rows, its ball query against the CPU's indices on the same inputs (exact), the groups of one point."""
+        out = []
+        for s, (n, r, k, _) in enumerate(VOTENET_SA):
+            plain = furthest_point_sample(xs[s], n, impl="plain")
+            check(torch.equal(plain, idxs[s]), f"pointnet2 {tag} SA{s + 1}: the forward's FPS picks differ from the plain "
+                                               "version")
+            nbr = ball_query(0.0, r, k, xs[s], xs[s + 1])
+            nbr_cpu = ball_query(0.0, r, k, xs[s].cpu(), xs[s + 1].cpu())
+            out.append(dict(stage=s + 1, radius=r, samples=k, centers=n, mismatches=int((nbr.cpu() != nbr_cpu).sum()),
+                            ms=time_ms(lambda: ball_query(0.0, r, k, xs[s], xs[s + 1]), 3, warmup=1),
+                            groups_of_one_point=groups_of_one(nbr)))
+            check(out[-1]["mismatches"] == 0, f"pointnet2 {tag} SA{s + 1}: the ball query differs from the CPU's")
+        return out
+
+    def timed_forwards(x, f, tag):
+        """LIDAR_TIMED timed forwards after a warm-up, the FPS launches counted: 4 a forward, one a stage."""
+        with torch.no_grad():
+            fps_ops.reset_launch_counts()
+            out, ms, host_ms, peak = lidar_timed(lambda: pointnet2(net, x, f))
+            by_shape = dict(fps_ops.furthest_point_sample_cuda.launches_by_shape)
+        want, n_in = {}, x.shape[0]
+        for n, *_ in VOTENET_SA:
+            want[(n_in, n)] = LIDAR_TIMED + 1  # the warm-up and the timed forwards
+            n_in = n
+        check(by_shape == want, f"pointnet2 {tag} FPS launches {by_shape}, expected {want}")
+        return out, ms, host_ms, peak, by_shape
+
+    def against_cpu(x, f, out, tag):
+        """The same forward of the net on the CPU: (FPS picks equal, the largest relative L2 of the features, ms)."""
+        xs, fs, idxs, seeds = out
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, cfs, cidx, cseeds = pointnet2(cpu_net, x.cpu(), f.cpu())
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        idx_equal = all(torch.equal(a.cpu(), b) for a, b in zip(idxs, cidx))
+        err = max(rel_l2(seeds.cpu(), cseeds), *(rel_l2(a.cpu(), b) for a, b in zip(fs[1:], cfs[1:])))
+        check(idx_equal and err <= LIDAR_REL_TOL and all_finite(seeds, *fs[1:]),
+              f"pointnet2 {tag} vs the CPU: FPS equal {idx_equal}, rel L2 {err}, or non-finite values")
+        return err, cpu_ms
+
+    cpu_net = on_cpu(net)
+    # the main run: the scene shrunk DENSE_SHRINK times, an indoor scan's density, where VoteNet's radii fill the groups
+    # (the street scene, ~4 points a square metre, leaves most of them the center alone)
+    dense = xyz / DENSE_SHRINK
+    dense_h = dense[:, 2:3] - dense[:, 2].min()
+    (xs, fs, idxs, seeds), ms, host_ms, peak, fps_by_shape = timed_forwards(dense, dense_h, "dense")
+    valid_all = [torch.ones(x.shape[0], dtype=torch.bool, device="cuda") for x in xs]
+    fps_cases = [fps_case(f"pointnet2_sa{s + 1}", xs[s], valid_all[s], n, None, exchange_us, False)
+                 for s, (n, *_) in enumerate(VOTENET_SA)]
+    bq = stage_checks(xs, idxs, "dense")
+    check(all(2 * b["groups_of_one_point"] < b["centers"] for b in bq),
+          f"pointnet2 dense: most groups of a stage hold one point only ({[b['groups_of_one_point'] for b in bq]}), "
+          "so the ball-query check would compare nothing")
+    err, cpu_ms = against_cpu(dense, dense_h, (xs, fs, idxs, seeds), "dense")
+    shapes = [tuple(f.shape) for f in fs[1:]] + [tuple(seeds.shape)]
+    check(shapes == [(2048, 128), (1024, 256), (512, 256), (256, 256), (1024, 256)],
+          f"pointnet2 shapes {shapes}")
+    profile_a = device_profile(lambda: pointnet2(net, dense, dense_h), top_n=8)
+    # the street scene as it is: FPS at an outdoor density from its 40,000 points
+    height = xyz[:, 2:3] - xyz[:, 2].min()
+    street, sms, shost_ms, speak, sfps_by_shape = timed_forwards(xyz, height, "street")
+    sxs, _, sidx, _ = street
+    fps_cases.append(fps_case("pointnet2_street_sa1", xyz, torch.ones(n_pts, dtype=torch.bool, device="cuda"),
+                              VOTENET_SA[0][0], None, exchange_us, False))
+    sbq = stage_checks(sxs, sidx, "street")
+    serr, _ = against_cpu(xyz, height, street, "street")
+    # train mode on the main run's cloud: a forward and backward (batch statistics, finite gradients) after one
+    # warm-up of the same
+    net.train()
+    for _ in range(2):
+        net.zero_grad()
+        fps_ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        *_, tseeds = pointnet2(net, dense, dense_h)
+        tseeds.square().mean().backward()
+        torch.cuda.synchronize()
+        train_ms = 1e3 * (time.perf_counter() - t0)
+    net.eval()
+    grads = [p.grad for p in net.parameters()]
+    grads_ok = all(g is not None and bool(torch.isfinite(g).all()) for g in grads) and all(
+        bool((g != 0).any()) for g in (net[0].mlp0.fc0.weight.grad, net[-1].mlp.fc1.weight.grad))
+    check(grads_ok and fps_ops.furthest_point_sample_cuda.launches == len(VOTENET_SA),
+          f"pointnet2 train step: gradients finite and non-zero {grads_ok}, FPS launches "
+          f"{fps_ops.furthest_point_sample_cuda.launches}")
+    res["a"] = dict(widths=dict(sa=VOTENET_SA, fp=VOTENET_FP), params=sum(p.numel() for p in net.parameters()),
+                    cloud=f"the street scene shrunk {DENSE_SHRINK:g}x", ms=ms, host_ms=host_ms, peak_mem_gb=peak,
+                    fps_launches_by_shape={str(k): v for k, v in fps_by_shape.items()},
+                    fps_launches_per_forward=sum(fps_by_shape.values()) / (LIDAR_TIMED + 1), shapes=shapes,
+                    fps_cases=[{k: v for k, v in c.items() if k != "kernel_args"} for c in fps_cases],
+                    ball_queries=bq, cpu_ms=cpu_ms, cpu_rel_l2=err, train_ms=train_ms,
+                    train_loss=tseeds.square().mean().item(),
+                    grad_norm=float(torch.linalg.vector_norm(torch.cat([g.flatten() for g in grads]))),
+                    profile=profile_a,
+                    street=dict(ms=sms, host_ms=shost_ms, peak_mem_gb=speak,
+                                fps_launches_by_shape={str(k): v for k, v in sfps_by_shape.items()},
+                                ball_queries=sbq, cpu_rel_l2=serr))
+    emit("lidar_pointnet2", nvidia_smi=smi, **res["a"])
+
+    # (b) PointPillars at nuScenes widths, B=1
+    torch.manual_seed(0)
+    vs, pcr = PILLARS_VOXEL["voxel_size"], PILLARS_VOXEL["point_cloud_range"]
+    vox = Voxelization(**PILLARS_VOXEL)
+    pillars = torch.nn.ModuleDict(dict(
+        vfe=HardVFE(4, PILLARS_VFE, True, True, vs, pcr, device="cuda"),
+        scatter=PointPillarsScatter(PILLARS_VFE[-1], PILLARS_CANVAS),
+        second=SECOND(PILLARS_VFE[-1], *PILLARS_SECOND, device="cuda"),
+        fpn=SECONDFPN(PILLARS_SECOND[0], *PILLARS_FPN, device="cuda"),
+        head=Anchor3DHead(NUS_CLASSES, in_channels=sum(PILLARS_FPN[0]), feat_channels=sum(PILLARS_FPN[0]),
+                          anchor_ranges=(PILLARS_ANCHOR_RANGE,) * NUS_CLASSES,
+                          anchor_sizes=((3.9, 1.6, 1.56),) * NUS_CLASSES, device="cuda"))).eval()
+
+    def pointpillars(m, p):
+        v, c, n, nv = vox(p, training=False)
+        coors = with_batch(c)
+        feats = m["fpn"](m["second"](m["scatter"](m["vfe"](v, n, coors), coors, 1)))
+        return m["head"](feats), feats, coors, nv
+
+    with torch.no_grad():
+        (preds, feats, coors, nv), ms, host_ms, peak = lidar_timed(lambda: pointpillars(pillars, pts4))
+        profile_b = device_profile(lambda: pointpillars(pillars, pts4), top_n=8)
+        t0 = time.perf_counter()
+        boxes, scores, labels = pillars["head"].get_bboxes(preds)[0]
+        bbox_ms = 1e3 * (time.perf_counter() - t0)
+        cpreds, cfeats, ccoors, cnv = pointpillars(on_cpu(pillars), pts4.cpu())
+        dcoors = dynamic_voxelize(pts4, point_cloud_range=pcr, voxel_size=vs)
+        dvfe = DynamicVFE(4, PILLARS_VFE, vs, pcr, max_voxels=PILLARS_VOXEL["max_voxels"][1], device="cuda").eval()
+        (dfeat, dvc), dms, dhost, dpeak = lidar_timed(lambda: dvfe(pts4, dcoors))
+        cdfeat, cdvc = on_cpu(dvfe)(pts4.cpu(), dcoors.cpu())
+    err = max(rel_l2(preds[k].cpu(), cpreds[k]) for k in preds)
+    derr = rel_l2(dfeat.cpu(), cdfeat)
+    check(torch.equal(coors.cpu(), ccoors) and int(nv) == int(cnv) and torch.equal(dvc.cpu(), cdvc)
+          and err <= LIDAR_REL_TOL and derr <= LIDAR_REL_TOL,
+          f"pointpillars vs the CPU: voxels equal {torch.equal(coors.cpu(), ccoors)}, rel L2 head {err}, dynamic {derr}")
+    check(tuple(feats.shape) == (1, 200, 200, 384) and all_finite(feats, dfeat, *preds.values()),
+          f"pointpillars: BEV {tuple(feats.shape)} or non-finite values")
+    res["b"] = dict(voxels=int(nv), capacity=PILLARS_VOXEL["max_voxels"][1], params=sum(
+        p.numel() for p in pillars.parameters()), ms=ms, host_ms=host_ms, peak_mem_gb=peak,
+        bev=list(feats.shape), cls_score=list(preds["cls_score"].shape), get_bboxes_ms=bbox_ms, boxes=len(boxes),
+        cpu_rel_l2=err, profile=profile_b, dynamic=dict(voxels=int((dvc[:, 0] >= 0).sum()), ms=dms, host_ms=dhost,
+                                                        peak_mem_gb=dpeak, cpu_rel_l2=derr))
+    emit("lidar_pointpillars", nvidia_smi=smi, **res["b"])
+
+    # (c) the Part-A2 sparse U-Net and RoI-aware pooling
+    vs, pcr = PARTA2_VOXEL["voxel_size"], PARTA2_VOXEL["point_cloud_range"]
+    vox2 = Voxelization(**PARTA2_VOXEL)
+    torch.manual_seed(0)
+    unet = SparseUNet(in_channels=4, device="cuda").eval()
+    with torch.no_grad():
+        v, c, n, nv = vox2(pts4, training=False)
+        keep = c[:, 0] >= 0
+        centers = voxel_centers(c[keep], pcr, vs)
+    rng = np.random.default_rng(0)
+    pick = torch.from_numpy(rng.choice(int(keep.sum()), PARTA2_ROIS, replace=False)).cuda()
+    size = torch.from_numpy(rng.uniform(0.8, 1.6, (PARTA2_ROIS, 3)).astype(np.float32)).cuda() * torch.tensor(
+        [3.9, 1.6, 1.56], device="cuda")
+    rois = torch.cat([centers[pick, :2], centers[pick, 2:3] - size[:, 2:3] / 2, size,
+                      torch.from_numpy(rng.uniform(-np.pi, np.pi, (PARTA2_ROIS, 1)).astype(np.float32)).cuda()], 1)
+
+    def parta2(m, p, rois):
+        v, c, n, nv = vox2(p, training=False)
+        seg, bev = m(HardSimpleVFE(4)(v, n), with_batch(c), 1)
+        keep = c[:, 0] >= 0
+        ctr, f = voxel_centers(c[keep], pcr, vs), seg[keep]
+        return seg, bev, roiaware_pool3d(rois, ctr, f, PARTA2_POOL, "max"), roiaware_pool3d(rois, ctr, f, PARTA2_POOL,
+                                                                                             "avg"), nv
+
+    with torch.no_grad():
+        (seg, bev, pmax, pavg, nv), ms, host_ms, peak = lidar_timed(lambda: parta2(unet, pts4, rois))
+        profile_c = device_profile(lambda: parta2(unet, pts4, rois), top_n=8)
+        ctr, f = voxel_centers(c[keep], pcr, vs), seg[keep]
+        pool_ms = {mode: time_ms(lambda: roiaware_pool3d(rois, ctr, f, PARTA2_POOL, mode), 3, warmup=1)
+                   for mode in ("max", "avg")}
+        cseg, cbev, cpmax, cpavg, cnv = parta2(on_cpu(unet), pts4.cpu(), rois.cpu())
+    errs = dict(seg=rel_l2(seg.cpu(), cseg), bev=rel_l2(bev.cpu(), cbev), max=rel_l2(pmax.cpu(), cpmax),
+                avg=rel_l2(pavg.cpu(), cpavg))
+    check(int(nv) == int(cnv) and max(errs.values()) <= LIDAR_REL_TOL, f"part-a2 vs the CPU: {int(nv)} / {int(cnv)} "
+                                                                        f"voxels, rel L2 {errs}")
+    occupied = int((pmax != 0).any(dim=-1).sum())
+    check(tuple(pmax.shape) == (PARTA2_ROIS, *PARTA2_POOL, unet.seg_channels) and occupied > 0
+          and all_finite(seg, bev, pmax, pavg), f"part-a2: pooled {tuple(pmax.shape)}, {occupied} occupied cells, "
+                                                 "or non-finite values")
+    res["c"] = dict(voxels=int(nv), capacity=PARTA2_VOXEL["max_voxels"][1], params=sum(p.numel() for p in
+                                                                                         unet.parameters()),
+                    ms=ms, host_ms=host_ms, peak_mem_gb=peak, seg=list(seg.shape), bev=list(bev.shape),
+                    pooled=list(pmax.shape), occupied_cells=occupied, roiaware_ms=pool_ms, cpu_rel_l2=errs,
+                    profile=profile_c)
+    emit("lidar_parta2", nvidia_smi=smi, **res["c"])
+
+    # (d) the ops at these sizes, held to the port on the CPU
+    d = {}
+    with torch.no_grad():
+        nn_idx = knn(LIDAR_KNN_K, xyz, xyz)
+        cpu_nn = knn(LIDAR_KNN_K, xyz.cpu(), xyz[:LIDAR_KNN_CPU].cpu())
+        d["knn"] = dict(k=LIDAR_KNN_K, queries=n_pts, cpu_queries=LIDAR_KNN_CPU,
+                        mismatches=int((nn_idx[:LIDAR_KNN_CPU].cpu() != cpu_nn).sum()),
+                        ms=time_ms(lambda: knn(LIDAR_KNN_K, xyz, xyz), 3, warmup=1))
+        rng = np.random.default_rng(1)
+        at = torch.from_numpy(rng.choice(n_pts, LIDAR_BOXES, replace=False)).cuda()
+        boxes = torch.cat([xyz[at, :2], xyz[at, 2:3] - 1.0,
+                           torch.from_numpy(rng.uniform(1.0, 6.0, (LIDAR_BOXES, 3)).astype(np.float32)).cuda(),
+                           torch.from_numpy(rng.uniform(-np.pi, np.pi, (LIDAR_BOXES, 1)).astype(np.float32)).cuda()], 1)
+        in_box = points_in_boxes(xyz, boxes)
+        d["points_in_boxes"] = dict(boxes=LIDAR_BOXES, inside=int((in_box >= 0).sum()),
+                                    mismatches=int((in_box.cpu() != points_in_boxes(xyz.cpu(), boxes.cpu())).sum()),
+                                    ms=time_ms(lambda: points_in_boxes(xyz, boxes), 3, warmup=1))
+        sub = xyz[:FPS_DIST_N].cpu()
+        dist = sq_dist(sub[:, None], sub[None])
+        dist_card = dist.cuda()
+        fd = furthest_point_sample_with_dist(dist_card, FPS_DIST_K)
+        d["fps_with_dist"] = dict(n=FPS_DIST_N, k=FPS_DIST_K,
+                                  mismatches=int((fd.cpu() != furthest_point_sample_with_dist(dist, FPS_DIST_K)).sum()),
+                                  ms=time_ms(lambda: furthest_point_sample_with_dist(dist_card, FPS_DIST_K), 2, 1))
+        r, k = BQ_ANY
+        anyq = ball_query(0.0, r, k, xyz, sxs[1], impl="grid", selection="any")
+        d["ball_query_any"] = dict(radius=r, samples=k, centers=sxs[1].shape[0], route="grid",
+                                   mismatches=int((anyq.cpu() != ball_query(0.0, r, k, xyz.cpu(), sxs[1].cpu(),
+                                                                            impl="grid", selection="any")).sum()),
+                                   rows_unlike_first=int((anyq != ball_query(0.0, r, k, xyz, sxs[1])).any(1).sum()),
+                                   ms=time_ms(lambda: ball_query(0.0, r, k, xyz, sxs[1], impl="grid",
+                                                                 selection="any"), 3, warmup=1))
+    for name, case in d.items():
+        check(case["mismatches"] == 0, f"{name}: {case['mismatches']} indices differ from the CPU's")
+    check(d["points_in_boxes"]["inside"] > 0 and d["ball_query_any"]["rows_unlike_first"] > 0,
+          f"ops: {d['points_in_boxes']['inside']} points in boxes, {d['ball_query_any']['rows_unlike_first']} rows "
+          "where 'any' differs from 'first'")
+    res["d"] = d
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit("lidar_ops", nvidia_smi=smi, phase_s=res["phase_s"], **d)
+    if bad:
+        fail("phase 23: " + "; ".join(bad))
+    return res
+
+
 # the kernels on wgmma / TMA / mbarriers, one name a template instance: the forward and dk/dv as <DC, EDGE> (64-column
 # chunks of the head dim; a last chunk partly past D)
 HOPPER_KERNELS = tuple(f"{kernel}<{dc},{edge}>" for kernel in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
@@ -4247,6 +4634,9 @@ def main(argv=None):
     nested_res, nested_launches = nested_finetune_phase(dict(fwd_case_of), bwd_case_of, fps_case_of, smi)
     dp_res = data_parallel_phase(dict(fwd_case_of), det_fps_case_of, tiny_fwd_case_of, tiny_fps_case_of)
     point_res = point_loss_phase()
+    torch.cuda.empty_cache()
+    # 23. the LiDAR model zoo at published widths: PointNet++ (VoteNet), PointPillars (nuScenes), Part-A2's U-Net
+    lidar_res = lidar_phase(smi, exchange_us)
     # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
@@ -4498,6 +4888,16 @@ def main(argv=None):
     table["nested_finetune"] = nested_res
     table["data_parallel"] = dp_res
     table["point_losses"] = point_res
+    # phase 23 (row 2j): the FPS kernel inside PointNet++'s four set abstractions at VoteNet's widths
+    lidar_fps = lidar_res["a"]["fps_cases"]
+    table["kernels"][1].update(
+        launches_pointnet2_forward=lidar_res["a"]["fps_launches_per_forward"],
+        pointnet2_per="one PointNet++ SSG forward at VoteNet's widths on 40,000 points (phase 23a: the street scene "
+                      "shrunk 10x, sa1-sa4; street_sa1 on the scene as it is)",
+        pointnet2_shapes=lidar_fps,
+        max_abs_err=max(table["kernels"][1]["max_abs_err"], max(c["max_abs_err"] for c in lidar_fps)))
+    table["lidar"] = {k: ({kk: vv for kk, vv in v.items() if kk != "fps_cases"} if isinstance(v, dict) else v)
+                      for k, v in lidar_res.items()}
     short_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_short_fwd")
     short_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
                      max_abs_err=max(short_row["max_abs_err"], api_res["f32_case"]["errors"]["short"]["max_abs_err"]))

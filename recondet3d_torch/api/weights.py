@@ -10,8 +10,10 @@ backwards: ``state_dict_from_flax`` turns the flax parameters, flattened to
 state dict that the port's ``load_state_dict`` takes.
 
 Layouts: Dense kernels (I, O) -> Linear weights (O, I); Conv kernels HWIO
--> OIHW; the strided deconvolutions keep the torch (I, O, k, k) layout the
-JAX package already stores; fp32 LayerNorms lose their ``LayerNorm_0``
+-> OIHW; the strided deconvolutions (DPT's ``resize_layers.0/1``,
+SECONDFPN's ``deblock<i>/kernel`` at stride > 1, which lands on
+``deblock<i>.up.weight``) keep the torch (I, O, k, k) layout the JAX
+package already stores; fp32 LayerNorms lose their ``LayerNorm_0``
 level and ``scale`` becomes ``weight``.
 
 The refinement (``.../refinement/middle_encoder/...``,
@@ -98,12 +100,13 @@ _REWRITES = [
     (re.compile(r"(^|/)fc_fov_0/"), r"\1fc_fov.0/"),
     (re.compile(r"(^|/)images_merger_(\d+)/"), r"\1images_merger.\2/"),  # GSDPT's image merger
     (re.compile(r"(^|/)task_(\d+)/"), r"\1branches.\2/"),  # CenterHead's per-task branches
+    (re.compile(r"(^|/)(deblock\d+)/kernel$"), r"\1\2/up/kernel"),  # SECONDFPN's transposed conv at stride > 1
 ]
 
 _LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 _COLLECTIONS = ("params/", "batch_stats/")
 _BACKBONE_DA3 = "reconstruction_backbone/da3/"
-_DECONV = re.compile(r"(^|\.)resize_layers\.[01]\.weight$")
+_DECONV = re.compile(r"(^|\.)(resize_layers\.[01]|deblock\d+\.up)\.weight$")
 
 
 def _strip_collection(path: str) -> str:

@@ -103,6 +103,7 @@ def ball_query_downsample(
     grid_dim: int = 64,
     share_sort: bool = False,
     fps_impl: str = "auto",
+    selection: str = "first",
 ):
     """Density-aware downsample: FPS anchors + the union of their ball-query
     neighbours, as a mask over the input. With ``n_valid <= anchor_points``
@@ -115,7 +116,9 @@ def ball_query_downsample(
     query and the compaction: the compacted rows then come in spatial
     order, except that the original-order-first selected point is hoisted
     to row 0, so that a following FPS seeds where the input-order path
-    would. ``fps_impl`` is passed to ``furthest_point_sample``.
+    would. ``fps_impl`` is passed to ``furthest_point_sample``, ``selection``
+    to ``ball_query`` ('any': the smallest sorted positions on the grid
+    route, see ``ops/ball_query.py``).
     """
     N = points.shape[0]
     xyz = points[:, :3]
@@ -128,7 +131,7 @@ def ball_query_downsample(
             anchor_idx = furthest_point_sample(xyz, anchor_points, valid, impl=fps_impl, presorted=structure)
         with stage("ball_query"):
             nbr = ball_query(min_radius, max_radius, sample_num, xyz, xyz[anchor_idx], points_valid=valid,
-                             grid_dim=grid_dim, structure=structure)
+                             grid_dim=grid_dim, structure=structure, selection=selection)
         sel = torch.zeros(N, dtype=torch.bool, device=points.device)
         sel[nbr.reshape(-1)] = True
         sel[anchor_idx] = True

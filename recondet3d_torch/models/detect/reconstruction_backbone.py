@@ -50,6 +50,7 @@ class ReconstructionBackbone(nn.Module):
         bq_anchor_points: int = 25000,
         bq_max_radius: float = 0.5,
         bq_sample_num: int = 16,
+        bq_selection: str = "first",
         bq_grid_dim: int = 128,
         bq_share_sort: bool = True,
         num_points: int = 40000,
@@ -64,6 +65,8 @@ class ReconstructionBackbone(nn.Module):
         self.max_depth, self.freeze_da3 = float(max_depth), bool(freeze_da3)
         self.filter_range = tuple(float(v) for v in filter_range)
         self.bq_anchor_points, self.bq_max_radius, self.bq_sample_num = bq_anchor_points, bq_max_radius, bq_sample_num
+        # 'first': the CUDA op's tie-break (the smallest original indices); 'any': the smallest sorted positions
+        self.bq_selection = bq_selection
         self.bq_grid_dim, self.bq_share_sort = bq_grid_dim, bq_share_sort
         self.num_points = num_points
         # GT points a training scene carries (the training CLI's data iterator pads or cuts each lidar sweep to it)
@@ -99,7 +102,7 @@ class ReconstructionBackbone(nn.Module):
             p, m = ball_query_downsample(
                 p, m, anchor_points=self.bq_anchor_points, max_radius=self.bq_max_radius,
                 sample_num=self.bq_sample_num, compact=True, grid_dim=self.bq_grid_dim,
-                share_sort=self.bq_share_sort, fps_impl=self.fps_impl)
+                share_sort=self.bq_share_sort, fps_impl=self.fps_impl, selection=self.bq_selection)
         counts["union"].append(m.sum())
         with stage("fps_downsample"):  # holds fps_final
             p, m = fps_downsample(p, m, num_points=self.num_points, input_spatially_sorted=self.bq_share_sort,

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from recondet3d_torch.parallel.mesh import data_parallel_size, global_sum
 from recondet3d_torch.utils.interpolation import interpolate_nchw
 
-__all__ = ["BEVHeightOccupancy", "FlaxBatchNorm2d"]
+__all__ = ["BEVHeightOccupancy", "FlaxBatchNorm2d", "FlaxBatchNorm"]
 
 
 class _Conv(nn.Conv2d):
@@ -57,19 +57,40 @@ class FlaxBatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
 
+    def _batch_stats(self, x, dims):
+        """Train mode: the batch's mean and biased variance over ``dims`` (every
+        rank's under data parallelism), the running statistics moved towards them."""
+        n = x.numel() // self.weight.numel() * data_parallel_size()
+        mean = global_sum(x.sum(dim=dims)) / n
+        var = torch.clamp(global_sum((x * x).sum(dim=dims)) / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        return mean, var
+
     def forward(self, x):
         x = x.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 training=False, eps=self.eps)
-        n = x.numel() // x.shape[1] * data_parallel_size()
-        mean = global_sum(x.sum(dim=(0, 2, 3))) / n
-        var = torch.clamp(global_sum((x * x).sum(dim=(0, 2, 3))) / n - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+        mean, var = self._batch_stats(x, (0, 2, 3))
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+class FlaxBatchNorm(FlaxBatchNorm2d):
+    """``FlaxBatchNorm2d`` over channels-last rows (..., C): statistics over
+    every leading axis, as flax's ``nn.BatchNorm`` takes them over (M, k, C)
+    or (V, P, C), and flax's y = (x - mean) * (rsqrt(var + eps) * weight) +
+    bias in eval mode too (running statistics there)."""
+
+    def forward(self, x):
+        x = x.float()
+        if self.training:
+            mean, var = self._batch_stats(x, tuple(range(x.dim() - 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 class _ChannelAttention(nn.Module):

@@ -1,13 +1,23 @@
 """Voxel feature encoders (port of ``recondet3d/models/refine/vfe.py``):
 ``hard_simple_vfe`` on the inference path, ``soft_voxel_occupancy_vfe`` for
-the training target.
+the training target, ``hard_voxel_occupancy_vfe``, and the three config
+wrappers registered in ``VOXEL_ENCODERS``. Outputs lie on the inputs' device.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["hard_simple_vfe", "soft_voxel_occupancy_vfe"]
+from recondet3d_torch.core.registry import VOXEL_ENCODERS
+
+__all__ = [
+    "hard_simple_vfe",
+    "hard_voxel_occupancy_vfe",
+    "soft_voxel_occupancy_vfe",
+    "HardSimpleVFE",
+    "HardVoxelOccupancyVFE",
+    "SoftVoxelOccupancyVFE",
+]
 
 
 def hard_simple_vfe(voxels: torch.Tensor, num_points: torch.Tensor, num_features: int = 3) -> torch.Tensor:
@@ -16,6 +26,11 @@ def hard_simple_vfe(voxels: torch.Tensor, num_points: torch.Tensor, num_features
     feats = voxels[..., :num_features]
     denom = num_points.clamp(min=1).to(feats.dtype)[:, None]
     return feats.sum(dim=1) / denom
+
+
+def hard_voxel_occupancy_vfe(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:
+    """(V,) -> (V, 1) fp32 binary occupancy."""
+    return (num_points > 0).float()[:, None]
 
 
 def soft_voxel_occupancy_vfe(voxels: torch.Tensor, num_points: torch.Tensor, lambda_n: float = 0.3,
@@ -31,3 +46,27 @@ def soft_voxel_occupancy_vfe(voxels: torch.Tensor, num_points: torch.Tensor, lam
     diff = (xyz - mean[:, None]) * mask
     var = ((diff ** 2).sum(dim=1) / denom).mean(dim=1)
     return (1.0 - torch.exp(-lambda_n * n - gamma_var * var))[:, None]
+
+
+@VOXEL_ENCODERS.register()
+class HardSimpleVFE:
+    def __init__(self, num_features: int = 3):
+        self.num_features = num_features
+
+    def __call__(self, voxels, num_points, coors=None):
+        return hard_simple_vfe(voxels, num_points, self.num_features)
+
+
+@VOXEL_ENCODERS.register()
+class HardVoxelOccupancyVFE:
+    def __call__(self, voxels, num_points, coors=None):
+        return hard_voxel_occupancy_vfe(voxels, num_points)
+
+
+@VOXEL_ENCODERS.register()
+class SoftVoxelOccupancyVFE:
+    def __init__(self, lambda_n=0.3, gamma_var=5.0, eps=1e-6):
+        self.lambda_n, self.gamma_var, self.eps = lambda_n, gamma_var, eps
+
+    def __call__(self, voxels, num_points, coors=None):
+        return soft_voxel_occupancy_vfe(voxels, num_points, self.lambda_n, self.gamma_var, self.eps)

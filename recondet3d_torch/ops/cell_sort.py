@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["CellSort", "cell_sort"]
+__all__ = ["CellSort", "cell_sort", "sort_into_cells"]
 
 
 class CellSort(NamedTuple):
@@ -49,7 +49,6 @@ def cell_sort(points: torch.Tensor, valid: Optional[torch.Tensor], grid_dim: int
     consumer will query."""
     N = points.shape[0]
     G = int(grid_dim)
-    n_cells = G * G
     pts = points[:, :3].float()
     v = valid.bool() if valid is not None else torch.ones(N, dtype=torch.bool, device=points.device)
     # invalid rows may hold anything (inf, nan): keep them out of the arithmetic
@@ -63,10 +62,20 @@ def cell_sort(points: torch.Tensor, valid: Optional[torch.Tensor], grid_dim: int
     ok = torch.isfinite(lo) & torch.isfinite(hi)
     lo = torch.where(ok, lo, torch.zeros_like(lo))
     cell = torch.where(ok, cell, torch.full_like(cell, float(min_cell) if min_cell > 0 else 1.0))
-    rc = torch.floor((xy - lo) / cell).clamp(0, G - 1).long()
-    pcell = torch.where(v, rc[:, 0] * G + rc[:, 1], torch.full_like(rc[:, 0], n_cells))
+    return sort_into_cells(pts, xy, v, lo, cell, G, min_cell)
 
+
+def sort_into_cells(pts: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor, cell: torch.Tensor,
+                    grid_dim: int, min_cell: float) -> CellSort:
+    """A stable sort of ``pts`` (N, 3) by the G x G grid of origin ``lo`` and
+    cell size ``cell`` (points outside clipped into the boundary cells,
+    invalid rows last), with each cell's first row. ``xy``: the points' xy
+    with the invalid rows zeroed."""
+    G = int(grid_dim)
+    n_cells = G * G
+    rc = torch.floor((xy - lo) / cell).clamp(0, G - 1).long()
+    pcell = torch.where(valid, rc[:, 0] * G + rc[:, 1], torch.full_like(rc[:, 0], n_cells))
     scell, order = torch.sort(pcell, stable=True)
     counts = torch.bincount(scell, minlength=n_cells + 1)
     cell_start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, dim=0)])
-    return CellSort(pts[order], v[order], order, scell, cell_start, lo, cell, float(min_cell))
+    return CellSort(pts[order], valid[order], order, scell, cell_start, lo, cell, float(min_cell))

@@ -6,6 +6,10 @@ and the reference the kernel is checked against on the card. The
 dispatcher ``furthest_point_sample`` runs the kernel on CUDA tensors and
 the plain version on CPU tensors; ``impl="plain"`` is the one switch.
 
+``furthest_point_sample_with_dist`` (a precomputed distance matrix) is the
+port of the JAX package's XLA loop of that name, plain PyTorch on any
+device: no kernel replaces it.
+
 Contract: the first index is the first valid point in original order; an
 invalid point is never chosen while a valid one remains (min-distance
 starts at 1e10 for valid points and -inf for the others, and invalid rows'
@@ -21,7 +25,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["furthest_point_sample", "furthest_point_sample_plain"]
+from recondet3d_torch.ops.grouping import sq_dist
+
+__all__ = ["furthest_point_sample", "furthest_point_sample_plain", "furthest_point_sample_with_dist"]
 
 
 def _prepare(points, valid_mask):
@@ -44,22 +50,19 @@ def furthest_point_sample_plain(points: torch.Tensor, num_samples: int,
     """K sequential selections in plain PyTorch -> (K,) int64.
 
     ``start`` (0-d integer tensor) overrides the first selected index, which
-    defaults to the first valid point. The squared distance is written out
-    column by column, ``(dx*dx + dy*dy) + dz*dz``, each product and sum
+    defaults to the first valid point. The squared distance is
+    ``grouping.sq_dist``'s, ``(dx*dx + dy*dy) + dz*dz``, each product and sum
     rounded on its own: the CUDA kernel rounds the same way, and
     ``torch.argmax`` returns the first maximum, so both give one sequence.
     """
     pts, valid = _prepare(points, valid_mask)
     pts = torch.where(valid[:, None], pts, torch.zeros_like(pts))
-    x, y, z = (c.contiguous() for c in pts.unbind(1))
-    min_dist = torch.where(valid, torch.full_like(x, 1e10), torch.full_like(x, float("-inf")))
+    min_dist = torch.where(valid, torch.full_like(pts[:, 0], 1e10), torch.full_like(pts[:, 0], float("-inf")))
     last = _first_valid(valid) if start is None else start.reshape(()).long()
     idxs = torch.zeros(int(num_samples), dtype=torch.long, device=pts.device)
     idxs[0] = last
     for i in range(1, int(num_samples)):
-        dx, dy, dz = x - x[last], y - y[last], z - z[last]
-        d = (dx * dx + dy * dy) + dz * dz
-        min_dist = torch.minimum(min_dist, d)
+        min_dist = torch.minimum(min_dist, sq_dist(pts, pts[last]))
         last = torch.argmax(min_dist)
         idxs[i] = last
     return idxs
@@ -100,3 +103,21 @@ def furthest_point_sample(points: torch.Tensor, num_samples: int,
         idx = furthest_point_sample_cuda(pts.contiguous(), valid.contiguous(),
                                          start.to(torch.int32).reshape(1), num_samples).long()
     return idx if sorig is None else sorig.long()[idx]
+
+
+@torch.no_grad()
+def furthest_point_sample_with_dist(dist_matrix: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """FPS given a precomputed (N, N) pairwise distance matrix -> (K,) int64.
+
+    As in the JAX package: the selection starts at index 0 whatever the
+    input, with no validity mask; the running minimum starts at 1e10 in the
+    matrix's dtype; each step takes the first maximum (``torch.argmax``)."""
+    N = dist_matrix.shape[0]
+    min_dist = torch.full((N,), 1e10, dtype=dist_matrix.dtype, device=dist_matrix.device)
+    idxs = torch.zeros(int(num_samples), dtype=torch.long, device=dist_matrix.device)
+    last = torch.zeros((), dtype=torch.long, device=dist_matrix.device)
+    for i in range(1, int(num_samples)):
+        min_dist = torch.minimum(min_dist, dist_matrix[last])
+        last = torch.argmax(min_dist)
+        idxs[i] = last
+    return idxs

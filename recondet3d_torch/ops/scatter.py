@@ -10,9 +10,9 @@ from typing import Tuple
 
 import torch
 
-from recondet3d_torch.ops.voxelize import _appearance_slots
+from recondet3d_torch.ops.voxelize import _appearance_slots, compute_grid_size
 
-__all__ = ["dynamic_scatter"]
+__all__ = ["dynamic_scatter", "DynamicScatter"]
 
 
 def dynamic_scatter(
@@ -68,3 +68,19 @@ def dynamic_scatter(
     point2voxel[order] = slot.to(torch.int32)
     num_voxels = (is_first & svalid).sum().clamp(max=max_voxels).to(torch.int32)
     return voxel_feats[:max_voxels], voxel_coors[:max_voxels], point2voxel, num_voxels
+
+
+class DynamicScatter:
+    """Config wrapper of ``dynamic_scatter``: the grid from the range and
+    the voxel size, 'mean' when ``average_points`` else 'max'."""
+
+    def __init__(self, voxel_size, point_cloud_range, average_points: bool = True, max_voxels: int = 200000):
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
+        self.average_points = average_points
+        self.max_voxels = max_voxels
+        self.grid = compute_grid_size(self.point_cloud_range, self.voxel_size)
+
+    def __call__(self, feats, coors_zyx):
+        return dynamic_scatter(feats, coors_zyx, grid=self.grid, max_voxels=self.max_voxels,
+                               reduce="mean" if self.average_points else "max")

@@ -21,6 +21,13 @@ autograd's scatter-add of M * K rows with atomics, so gradients are the
 same from run to run; the weight gradient is one fp32 product over the
 re-gathered rows. A submanifold map is symmetric, so its ``bwd_map`` is
 the map itself with the taps mirrored (a flip of the weights).
+
+``subm_conv_apply(form="pair")`` gathers only the negative half of the taps
+and the center and delivers each pair's mirror contribution with one
+index-add; its backward (``_PairConvCore``) is the same pair form with the
+flipped, transposed kernel for the features and two half gathers for the
+weights, as in the JAX package's custom VJP. ``gathered_conv_apply`` is the
+gather form for any (M, K) map, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ __all__ = [
     "sort_by_column",
     "build_neighbor_map",
     "subm_conv_apply",
+    "gathered_conv_apply",
     "sparse_conv_downsample",
     "sparse_tensor_from_voxels",
     "to_dense_bev",
@@ -116,6 +124,26 @@ def build_neighbor_map(st: SparseTensor, kernel=3) -> torch.Tensor:
     return torch.where(hit, srow[pos], torch.full_like(pos, N))
 
 
+def _linear_ids(coords: torch.Tensor, grid, batch_size: int) -> torch.Tensor:
+    """[b, z, y, x] -> int64 id ((b*Z + z)*Y + y)*X + x; invalid rows ->
+    the sentinel batch_size * Z * Y * X."""
+    Z, Y, X = grid
+    c = coords.long()
+    ids = ((c[:, 0] * Z + c[:, 1]) * Y + c[:, 2]) * X + c[:, 3]
+    return torch.where(c[:, 0] >= 0, ids, torch.full_like(ids, batch_size * Z * Y * X))
+
+
+def _lookup_rows(active_ids: torch.Tensor, query_ids: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """For each query id the row of the matching active id, or N if absent
+    or the sentinel: one sort of the active ids and ``torch.searchsorted``
+    (the rows of the JAX package's dense table and merged-sort lookups)."""
+    N = active_ids.shape[0]
+    sids, srow = torch.sort(active_ids)
+    pos = torch.searchsorted(sids, query_ids).clamp(max=max(N - 1, 0))
+    hit = (sids[pos] == query_ids) & (query_ids != sentinel) if N else torch.zeros_like(query_ids, dtype=torch.bool)
+    return torch.where(hit, srow[pos], torch.full_like(query_ids, N))
+
+
 def _gather_matmul(features: torch.Tensor, gather_map: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """out[m] = sum_k features[map(m, k)] @ W[k]; map entries == N (a zero
     row) mark missing neighbours. Weights are cast to the features' dtype."""
@@ -150,13 +178,77 @@ class _ConvCore(torch.autograd.Function):
         return df, None, None, dw, None
 
 
+def _pair_matmul(features: torch.Tensor, half_map: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Exact submanifold conv from the half map (the negative taps and the
+    center, ``nbr_map[:, :K//2 + 1]``): the gathered half through
+    W[0..K//2], plus, for each found pair (n, k < K//2) with m =
+    half_map[n, k], F[n] @ W[K-1-k] added into row m."""
+    N, Cin = features.shape
+    Hc = half_map.shape[1]
+    H = Hc - 1
+    Cout = weight.shape[-1]
+    w = weight.to(features.dtype)
+    padded = torch.cat([features, features.new_zeros((1, Cin))], dim=0)
+    out = padded[half_map].reshape(N, Hc * Cin) @ w[:Hc].reshape(Hc * Cin, Cout)
+    w_rev = w[Hc:].flip(0)  # w_rev[k] = W[K-1-k], k < H
+    t = (features @ w_rev.permute(1, 0, 2).reshape(Cin, H * Cout)).reshape(N * H, Cout)
+    mirror = out.new_zeros((N + 1, Cout)).index_add_(0, half_map[:, :H].reshape(-1), t)  # row N: missing pairs
+    return out + mirror[:N]
+
+
+class _PairConvCore(torch.autograd.Function):
+    """``_pair_matmul`` with the JAX package's pair-form backward: dF is the
+    pair form of the flipped, transposed kernel; dW comes from the two half
+    gathers (the negative taps and the center from F at the map's rows, the
+    mirror taps from g at the map's rows)."""
+
+    @staticmethod
+    def forward(ctx, features, half_map, weight):
+        ctx.save_for_backward(features, half_map, weight)
+        return _pair_matmul(features, half_map, weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, half_map, weight = ctx.saved_tensors
+        H = half_map.shape[1] - 1
+        df = dw = None
+        if ctx.needs_input_grad[0]:
+            df = _pair_matmul(g.to(features.dtype), half_map, weight.flip(0).transpose(1, 2))
+        if ctx.needs_input_grad[2]:
+            Cin = features.shape[1]
+            gath_f = torch.cat([features, features.new_zeros((1, Cin))])[half_map].float()  # (N, Hc, Cin)
+            gath_g = torch.cat([g, g.new_zeros((1, g.shape[1]))])[half_map[:, :H]].float()  # (N, H, Cout)
+            g32 = g.float()
+            dw_neg = torch.einsum("nhc,nd->hcd", gath_f, g32)
+            dw_pos = torch.einsum("nc,nhd->hcd", features.float(), gath_g)
+            dw = torch.cat([dw_neg, dw_pos.flip(0)]).to(weight.dtype)
+        return df, None, dw
+
+
 def subm_conv_apply(features: torch.Tensor, nbr_map: torch.Tensor, weight: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None, *, form: str = "full") -> torch.Tensor:
     """Apply a (K, Cin, Cout) kernel on a submanifold neighbour map:
-    features (N, Cin), nbr_map (N, K) -> (N, Cout)."""
+    features (N, Cin), nbr_map (N, K) -> (N, Cout). ``form="full"``: one
+    (N, K) gather and one product; ``form="pair"``: the half gather and the
+    mirror index-add (the same result up to the order of fp32 sums)."""
     if nbr_map.shape[0] != features.shape[0]:
         raise ValueError("subm conv requires square maps")
-    out = _ConvCore.apply(features, nbr_map, nbr_map, weight, True)
+    if form == "pair":
+        out = _PairConvCore.apply(features, nbr_map[:, : nbr_map.shape[1] // 2 + 1], weight)
+    elif form == "full":
+        out = _ConvCore.apply(features, nbr_map, nbr_map, weight, True)
+    else:
+        raise ValueError(f"unknown subm conv form {form!r}")
+    if bias is not None:
+        out = out + bias.to(features.dtype)
+    return out
+
+
+def gathered_conv_apply(features: torch.Tensor, gather_map: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather-form conv for any (M, K) map (entries == N missing):
+    out[m] = sum_k features[map(m, k)] @ W[k]."""
+    out = _gather_matmul(features, gather_map, weight)
     if bias is not None:
         out = out + bias.to(features.dtype)
     return out

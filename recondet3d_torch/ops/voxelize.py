@@ -11,6 +11,11 @@ Same contract as the JAX functions, static capacities included:
 
 One stable sort over linear voxel ids plus segment arithmetic; no
 ``nonzero`` / ``.item()``, so nothing here waits for the device.
+
+``Voxelization`` is the config wrapper (train / test ``max_voxels``);
+``VoxelGenerator`` is the JAX package's numpy generator, copied as it is
+(numpy division by the voxel size, first-appearance order): a host-side
+oracle and data tool, not the device path.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["compute_grid_size", "voxelize", "dynamic_voxelize"]
+__all__ = ["compute_grid_size", "voxelize", "dynamic_voxelize", "voxel_centers", "Voxelization", "VoxelGenerator"]
 
 
 def compute_grid_size(point_cloud_range: Sequence[float], voxel_size: Sequence[float]) -> Tuple[int, int, int]:
@@ -109,3 +114,97 @@ def dynamic_voxelize(points: torch.Tensor, *, point_cloud_range: Sequence[float]
     grid = compute_grid_size(point_cloud_range, voxel_size)
     coors_zyx, valid = _point_coors(points[:, :3], point_cloud_range, voxel_size, grid)
     return torch.where(valid[:, None], coors_zyx, torch.full_like(coors_zyx, -1)).to(torch.int32)
+
+
+def voxel_centers(coors_zyx: torch.Tensor, point_cloud_range, voxel_size) -> torch.Tensor:
+    """Centers (M, 3) xyz fp32 of voxels given zyx integer coords:
+    min + (index + 0.5) * size."""
+    mins = torch.tensor(tuple(point_cloud_range[:3]), dtype=torch.float32, device=coors_zyx.device)
+    vs = torch.tensor(tuple(voxel_size), dtype=torch.float32, device=coors_zyx.device)
+    return mins + (coors_zyx.flip(-1).float() + 0.5) * vs
+
+
+class Voxelization:
+    """Config wrapper of ``voxelize``: ``max_voxels`` an int, or a pair
+    (training, testing) chosen by ``training``. Outputs lie on the points'
+    device."""
+
+    def __init__(self, voxel_size, point_cloud_range, max_num_points, max_voxels=20000,
+                 deterministic: bool = True):
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.point_cloud_range = tuple(float(v) for v in point_cloud_range)
+        self.max_num_points = int(max_num_points)
+        if isinstance(max_voxels, (tuple, list)):
+            self.max_voxels_train, self.max_voxels_test = int(max_voxels[0]), int(max_voxels[1])
+        else:
+            self.max_voxels_train = self.max_voxels_test = int(max_voxels)
+        self.grid_size = compute_grid_size(self.point_cloud_range, self.voxel_size)
+        self.deterministic = deterministic  # always deterministic: one stable sort
+
+    def __call__(self, points, valid_mask=None, training: bool = True):
+        return voxelize(points, valid_mask, point_cloud_range=self.point_cloud_range, voxel_size=self.voxel_size,
+                        max_points=self.max_num_points,
+                        max_voxels=self.max_voxels_train if training else self.max_voxels_test)
+
+    def __repr__(self):
+        return (f"Voxelization(voxel_size={self.voxel_size}, point_cloud_range={self.point_cloud_range}, "
+                f"max_num_points={self.max_num_points}, max_voxels=({self.max_voxels_train}, {self.max_voxels_test}))")
+
+
+class VoxelGenerator:
+    """Numpy voxel generator (first-appearance voxel order, a per-voxel
+    point cap, a voxel cap), the port's copy of the JAX package's."""
+
+    def __init__(self, voxel_size, point_cloud_range, max_num_points, max_voxels: int = 20000):
+        self._voxel_size = np.asarray(voxel_size, np.float32)
+        self._point_cloud_range = np.asarray(point_cloud_range, np.float32)
+        self._max_num_points = int(max_num_points)
+        self._max_voxels = int(max_voxels)
+        self._grid_size = np.round(
+            (self._point_cloud_range[3:] - self._point_cloud_range[:3]) / self._voxel_size).astype(np.int64)
+
+    @property
+    def voxel_size(self):
+        return self._voxel_size
+
+    @property
+    def point_cloud_range(self):
+        return self._point_cloud_range
+
+    @property
+    def max_num_points_per_voxel(self):
+        return self._max_num_points
+
+    @property
+    def grid_size(self):
+        return self._grid_size
+
+    def generate(self, points: np.ndarray):
+        """points (N, C) -> (voxels (M, max_pts, C), coors (M, 3) zyx,
+        num_points (M,)) with M <= max_voxels, first-appearance order."""
+        pts = np.asarray(points)
+        lo = self._point_cloud_range[:3]
+        hi = self._point_cloud_range[3:]
+        gx, gy, gz = self._grid_size
+        c = np.floor((pts[:, :3] - lo) / self._voxel_size).astype(np.int64)
+        ok = np.all(pts[:, :3] >= lo, 1) & np.all(pts[:, :3] < hi, 1)
+        ok &= np.all(c >= 0, 1) & (c[:, 0] < gx) & (c[:, 1] < gy) & (c[:, 2] < gz)
+
+        voxels = np.zeros((self._max_voxels, self._max_num_points, pts.shape[1]), pts.dtype)
+        coors = np.zeros((self._max_voxels, 3), np.int32)
+        num = np.zeros(self._max_voxels, np.int32)
+        index = {}
+        for i in np.flatnonzero(ok):
+            key = (int(c[i, 2]), int(c[i, 1]), int(c[i, 0]))  # zyx
+            v = index.get(key)
+            if v is None:
+                if len(index) >= self._max_voxels:
+                    continue
+                v = len(index)
+                index[key] = v
+                coors[v] = key
+            if num[v] < self._max_num_points:
+                voxels[v, num[v]] = pts[i]
+                num[v] += 1
+        m = len(index)
+        return voxels[:m], coors[:m], num[:m]

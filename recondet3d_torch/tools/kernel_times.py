@@ -105,9 +105,13 @@ def device_ms_per_call(fn, calls):
 
 
 def request_ms(n):
-    """Wall ms of each of ``n`` main-path requests after one warm-up."""
+    """Wall ms of each of ``n`` main-path requests after one warm-up, and the
+    device ms of each request's stages (``utils/stage_timer.py``: the point
+    path's cell sort, FPS and ball query, the refinement's parts)."""
     import time
     from pathlib import Path
+
+    from recondet3d_torch.utils import stage_timer
 
     from recondet3d_torch.data.anchor_scene import anchor_depth, rig_cam2lidar
     from recondet3d_torch.models.detect import build_resdet3d
@@ -122,14 +126,16 @@ def request_ms(n):
     points = np.load(Path(__file__).resolve().parents[2] / "assets" / "bench_sample" / "reference_points.npz")
     depth = torch.from_numpy(anchor_depth(points["points"], c2l, 280, 504, batch=2)).cuda()
     c2l = torch.from_numpy(c2l).cuda()
-    times = []
+    times, stages = [], []
     for i in range(n + 1):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.simple_test(img, c2l, depth_override=depth)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    return times[1:]
+        with stage_timer.collect() as stage_ms:
+            t0 = time.perf_counter()
+            model.simple_test(img, c2l, depth_override=depth)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        stages.append({k: v for k, v in stage_ms.items() if not k.endswith("/calls")})
+    return times[1:], stages[1:]
 
 
 def main(argv=None) -> int:
@@ -180,7 +186,7 @@ def main(argv=None) -> int:
             res[f"f32_{kind}_device_ms"][name] = device_ms_per_call(fn, F32_CALLS)
             res[f"f32_{kind}_host_ms"][name] = time_ms(fn, F32_CALLS)
     if args.requests:
-        res["request_ms"] = request_ms(args.requests)
+        res["request_ms"], res["request_stage_ms"] = request_ms(args.requests)
     load_kernels()
     res["ptxas"] = {stem: BUILD_LOG[stem]["ptxas"] for stem in ("flash_attn_fwd", "flash_attn_bwd")}
     print(json.dumps(res), flush=True)
