@@ -256,6 +256,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
             features over 128 RoIs from a seed; (d) knn (k = 16, all 40,000 queries; the first 1,024 on the
             CPU), points in 64 boxes, FPS on a 2,048-point distance matrix and the 'any' ball query on the grid
             route. Paths (a)-(c) each get one profiled call (device time by kernel class, idle share).
+24. last    the port's last modules. (a) tensor parallelism (``parallel/tp.py``): two gloo ranks on the
+            card over a 1 x 2 mesh (``tests/tp_worker.py``), da3-large fine-tuned (phase 12's step, block
+            remat) and nested-giant-large's production step (phase 14's), a warm-up and two steps each at B=1
+            x 6 views of 900x1600 with 40,000 GT points, against the same steps in one process from the same
+            state: the first step's loss, grad norm and each parameter group after it (relative L2, gathered
+            over ``model``) within the larger of 1e-3 and twice the run's own floor (a second one-process run,
+            and one on the plain attention), the later steps' reported; each rank's flash forward / dq / dk/dv
+            launches those of one process at half the heads, both ranks' replicated parameters and batch
+            statistics the same bits; ms a step, peak memory and the all-reduces' share per
+            rank (gloo goes through the host: not a speed claim); the flash kernels at the per-rank shapes held
+            to plain. (b) ``cli.create_data`` for kitti, lyft, waymo, scannet, sunrgbd and s3dis at the
+            datasets' per-sample sizes (a KITTI scan of 120,000 points, a SUN RGB-D depth of 60,000 sampled to
+            50,000, ...) in parallel subprocesses, the nuImages COCO export, then ``LyftDataset.evaluate`` (100
+            samples x 50 GT x 200 predictions, 9 classes) and ``indoor_eval`` (200 scenes x 256 yawed
+            predictions, SUN RGB-D's 10 classes) on the card against the CPU: APs within 1e-6, IoU matrices
+            within 1e-5; seconds per sample and per evaluation.
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
@@ -288,6 +304,7 @@ import io
 import json
 import logging
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -559,6 +576,24 @@ BN_FORM_PAIRS = 10
 DP_STEPS = 2
 # (c) the point losses at 40,000 x 40,000 points (B=1), held to the same loss unchunked on a 4,096-point subset
 POINT_LOSS_POINTS, POINT_LOSS_SUBSET, POINT_LOSS_CHUNK, POINT_LOSS_REL_TOL = 40000, 4096, 1024, 1e-5
+
+# phase 24, the last modules. (a) tensor parallelism: two gloo ranks on the one card over a 1 x TP_MODEL mesh
+# (tests/tp_worker.py), the fine-tuning step of da3-large (phase 12's) and the production step of nested-giant-large
+# (phase 14's), a warm-up and TP_STEPS steps each, against the same steps in one process from the same state. The
+# first step's gates come from the run's own floor: a second one-process run (atomics in the heads' backward) and one
+# with the plain attention (another rounding of the same function); each metric within the larger of TP_MIN_TOL and
+# twice the floor. A lost all-reduce, a bias added twice or a head on the wrong rank moves these by ~1.
+TP_MODEL, TP_STEPS, TP_MIN_TOL, TP_NOISE = 2, 2, 1e-3, 1e-5
+# the (B, H, N, M) each rank gives the flash kernels: half of every trunk's heads
+TP_SHAPES = {k: (s[0], s[1] // TP_MODEL, s[2], s[3]) for k, s in TRAIN_FWD_SHAPES.items()}
+# (b) the data paths at the datasets' per-sample sizes: points a scan / scene (SUN RGB-D's depth past the 50,000 the
+# converter keeps; an S3DIS room of 200,000), Lyft's evaluation (samples, GT, predictions a sample over the 9
+# classes) and the indoor one (scenes, GT, VoteNet's 256 proposals, SUN RGB-D's 10 classes, yawed)
+DATA_SIZES = dict(kitti=120000, lyft=None, waymo=160000, scannet=50000, sunrgbd=60000, s3dis=200000)
+LYFT_EVAL, INDOOR_EVAL = (100, 50, 200), (200, 20, 256, 10)
+SUNRGBD_NAMES = ("bed", "table", "sofa", "chair", "toilet", "desk", "dresser", "night_stand", "bookshelf", "bathtub")
+# card against CPU: the APs (the same matching on IoUs within DATA_IOU_TOL) and the IoU matrices
+DATA_AP_TOL, DATA_IOU_TOL = 1e-6, 1e-5
 
 CLI_COUNTING = """import importlib, json, sys
 from recondet3d_torch.ops.attention import flash_attention_fwd
@@ -4199,6 +4234,321 @@ HOPPER_LIBS = ("flash_attn_fwd", "flash_attn_bwd")  # the sources of HOPPER_KERN
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "MUFU.EX2", "SYNCS")
 
 
+def tp_groups(names):
+    """Parameter groups of a ResDet3D by the first three components of a name (the ViT trunk, the DA3 head, each
+    part of the refinement, ...)."""
+    return sorted({".".join(n.split(".")[:3]) for n in names})
+
+
+def tp_group_rel_l2(got, ref, keep=None):
+    """By parameter group: ||got - ref|| / ||ref|| over the group's tensors (over the elements ``keep[name]`` marks,
+    where given)."""
+    out = {}
+    for g in tp_groups(ref):
+        keys = [n for n in ref if n.startswith(g + ".")]
+        sel = (lambda n, t: t) if keep is None else (lambda n, t: t[keep[n]])  # noqa: E731
+        num = sum(float((sel(n, got[n] - ref[n]).double() ** 2).sum()) for n in keys)
+        den = sum(float((sel(n, ref[n]).double() ** 2).sum()) for n in keys)
+        out[g] = (num ** 0.5) / max(den ** 0.5, 1e-30)
+    return out
+
+
+def tp_one_process(model, kw, batch, plain=False):
+    """One warm-up and TP_STEPS steps of ``Trainer`` in this process from ``model``'s state (a copy): the metrics
+    of every step, the trained parameters and their gradients after the warm-up (fp32, host), the kernels' launches
+    in the TP_STEPS steps and their times."""
+    m = copy.deepcopy(model)
+    if plain:
+        set_attn_impl(m, "plain")
+    trainer = Trainer(model=m, **kw)
+    state, history = trainer.run(trainer.init_state(), iter([batch]), max_steps=1)
+    trained = set(trainer.optimizer.names)
+    params = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in m.named_parameters() if n in trained}
+    grads = {n: p.grad.to("cpu", torch.float32, copy=True) for n, p in m.named_parameters()
+             if n in trained and p.grad is not None}
+    reset_launch_counts()
+    fps_ops.reset_launch_counts()
+    times = []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, h = trainer.run(state, iter([batch]), max_steps=1)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        history += h
+    launches = {k: dict(w.launches_by_shape) for k, w in (("fwd", flash_attention_fwd), ("dq", flash_attention_bwd_dq),
+                                                           ("dkv", flash_attention_bwd_dkv))}
+    launches["fps"] = dict(fps_ops.furthest_point_sample_cuda.launches_by_shape)
+    del m, trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(history=history, params=params, grads=grads, launches=launches, ms_per_step=times)
+
+
+def tp_step_case(name, model, kw, batch, rank_res):
+    """A two-rank run against the one-process run from the same state: the first step's loss and grad norm, and the
+    parameters after it by parameter group (relative L2), each within the larger of TP_MIN_TOL and twice the floor's
+    reading. The floor: a second
+    one-process run (the heads' backward sums with atomics) and one with the plain attention (another rounding of
+    the same function, as the in-situ checks use). Past the first step every run, the floor's too, follows its own
+    trajectory (a random-weight net under AdamW, where Adam's first update moves every element by lr whatever its
+    gradient's size, and point sets chosen on depths one rounding apart): those steps' metrics are reported, not
+    gated (gated, a correct run read 0.0089 at the second step on an H100 against a gate of 0.0029 from floors of
+    0.0002 and 0.0015). The two ranks' replicated parameters and batch statistics must be the same bits after every
+    step."""
+    t0 = time.perf_counter()
+    ref = tp_one_process(model, kw, batch)
+    again = tp_one_process(model, kw, batch)
+    plain = tp_one_process(model, kw, batch, plain=True)
+    got = rank_res[0]
+    metrics = {}
+    for key in ("loss", "grad_norm"):
+        r = [h[key] for h in ref["history"]]
+        rel = lambda hist: [abs(h[key] - v) / max(abs(v), 1e-30) for h, v in zip(hist, r)]  # noqa: E731
+        metrics[key] = dict(tp=rel(got["history"]), floor_repeat=rel(again["history"]),
+                            floor_plain=rel(plain["history"]), one_process=r,
+                            two_ranks=[h[key] for h in got["history"]])
+    # Adam's first update moves every element by about lr whatever its gradient, so an element whose gradient is
+    # rounding noise (below TP_NOISE of the largest) goes either way in any two runs: the parameters are compared
+    # over the others, as tests/test_torch_ddp.py does
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    keep = {n: ref["grads"][n].abs() >= TP_NOISE * top if n in ref["grads"] else torch.zeros_like(p, dtype=torch.bool)
+            for n, p in ref["params"].items()}
+    groups = {name: tp_group_rel_l2(run["params"], ref["params"], keep)
+              for name, run in (("tp", got), ("floor_repeat", again), ("floor_plain", plain))}
+    gates = {k: max(TP_MIN_TOL, 2 * max(v["floor_repeat"][0], v["floor_plain"][0])) for k, v in metrics.items()}
+    group_gates = {g: max(TP_MIN_TOL, 2 * max(groups["floor_repeat"][g], groups["floor_plain"][g]))
+                   for g in groups["tp"]}
+    # the launches each rank made: the one-process run's, at half the heads
+    want = {k: {(s[0], s[1] // TP_MODEL) + tuple(s[2:]): n for s, n in v.items()} if k != "fps" else v
+            for k, v in ref["launches"].items()}
+    launches_equal = all({k: dict(v) for k, v in r["launches"].items()} == want for r in rank_res)
+    finite = all(np.isfinite(v) for r in rank_res for h in r["history"] for v in h.values())
+    res = dict(name=name, steps=TP_STEPS, model_ranks=TP_MODEL, loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+               gates_first_step=gates, params_rel_l2_first_step=groups, params_gates=group_gates,
+               replicas_equal=rank_res[0]["digest"] == rank_res[1]["digest"],
+               launches_per_rank=[{k: {str(s): n for s, n in v.items()} for k, v in r["launches"].items()}
+                                  for r in rank_res],
+               launches_one_process={k: {str(s): n for s, n in v.items()} for k, v in ref["launches"].items()},
+               launches_equal=launches_equal, finite=finite,
+               # not a speed claim: gloo moves every all-reduce through the host
+               ms_per_step_per_rank=[r["step_ms"] for r in rank_res], ms_per_step_one_process=ref["ms_per_step"],
+               peak_mem_gb_per_rank=[r["peak_bytes"] / 1e9 for r in rank_res],
+               all_reduce_share=[r["reduce_ms"] / sum(r["step_ms"]) for r in rank_res],
+               qkv_rows_per_rank={n: s for n, s in rank_res[0]["local_shapes"].items()
+                                  if n.endswith("blocks.0.attn.qkv.weight")},
+               seconds_one_process_runs=time.perf_counter() - t0)
+    res["ok"] = (finite and launches_equal and res["replicas_equal"]
+                 and all(metrics[k]["tp"][0] <= gates[k] for k in gates)
+                 and all(groups["tp"][g] <= group_gates[g] for g in group_gates))
+    emit("tensor_parallel_step", **res)
+    if not res["ok"]:
+        fail(f"tensor parallel ({name}): two ranks against one process: {res}")
+    del ref, again, plain
+    return res
+
+
+def tensor_parallel_phase(fps_case_of):
+    """Phase 24a: two gloo ranks on the one card over a 1 x 2 mesh (tests/tp_worker.py): da3-large fine-tuned and
+    the production step of nested-giant-large with DA3 frozen, each a warm-up and TP_STEPS steps, against the same
+    steps in one process; the flash kernels at the per-rank shapes against their plain versions."""
+    worker = tests_module("tp_worker")
+    tmp = tempfile.mkdtemp(prefix="recondet3d_tp_")
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        ft = build_resdet3d(FT_PRESET, dtype=torch.bfloat16, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(1), refinement=REFINEMENT,
+                            voxel_pre_reduce=PRE_REDUCE_VOXEL, pre_reduce_cap=PRE_REDUCE_CAP,
+                            bq_anchor_points=ANCHORS, num_points=NUM_POINTS, freeze_da3=False)
+        with torch.no_grad():
+            ft.reconstruction_backbone.da3.head.scratch.output_conv2._modules["2"].weight.mul_(FT_DEPTH_HEAD_SCALE)
+        batch_a = train_batch(500)
+        ft, _ = fit_max_depth(ft, batch_a, "tensor_parallel_finetune")
+        prod = build_resdet3d(PRESET, dtype=torch.bfloat16, device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(0), refinement=REFINEMENT,
+                              voxel_pre_reduce=PRE_REDUCE_VOXEL, pre_reduce_cap=PRE_REDUCE_CAP,
+                              bq_anchor_points=ANCHORS, num_points=NUM_POINTS)
+        batch_b = train_batch(600)
+        prod, _ = fit_max_depth(prod, batch_b, "tensor_parallel_train")
+        kw_a = dict(total_steps=1000, lr=1e-4, frozen_patterns=())
+        kw_b = dict(total_steps=1000, lr=1e-3)
+        job_file = os.path.join(tmp, "jobs.pt")
+        common = dict(kind="trainer_step", steps=TP_STEPS, warmup=1, time_steps=True, lean=True)
+        torch.save(dict(finetune=dict(common, module=ft, batch=batch_a, trainer=kw_a),
+                        train=dict(common, module=prod, batch=batch_b, trainer=kw_b)), job_file)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = tests_module("ddp_worker").spawn_ranks(TP_MODEL, job_file, tmp, "cuda", timeout=600,
+                                                       target=worker.run, extra=(1, TP_MODEL))
+        spawn_s = time.perf_counter() - t0
+        os.remove(job_file)
+        for name, model, kw, batch in (("finetune", ft, kw_a, batch_a), ("train", prod, kw_b, batch_b)):
+            res[name] = tp_step_case(name, model, kw, batch, [r[name] for r in ranks])
+            res[name]["rank_job_s"] = [r[name]["seconds"] for r in ranks]
+            for r in ranks:
+                unchecked = [s for s in r[name]["launches"]["fps"] if s not in fps_case_of]
+                if unchecked:
+                    fail(f"tensor parallel ({name}): FPS ran at sizes no kernel case checked: {unchecked}")
+        res["build_s"], res["spawn_s"] = build_s, spawn_s
+        del ft, prod, ranks
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the flash kernels at the shapes each rank gave them, against the plain version
+    res["fwd_cases"] = [kernel_case(f"{n}_tp{TP_MODEL}", s, None, 2400 + i)
+                        for i, (n, s) in enumerate(TP_SHAPES.items())]
+    res["bwd_cases"] = [bwd_case(f"{n}_tp{TP_MODEL}", s, None, 2500 + i, True)
+                        for i, (n, s) in enumerate(TP_SHAPES.items()) if n.startswith("vitl")]
+    return res
+
+
+def datasets_phase():
+    """Phase 24b: ``python -m recondet3d_torch.cli.create_data`` for every choice but nuscenes (phase 18 ran it) on
+    synthetic fixtures at the datasets' per-sample sizes, all at once in subprocesses; the nuImages COCO export;
+    then Lyft's IoU mAP and the indoor AP with yawed boxes on the card against the same on the CPU."""
+    from recondet3d_torch.data.indoor import indoor_eval
+    from recondet3d_torch.data.indoor.dataset import iou_3d as indoor_iou
+    from recondet3d_torch.data.lyft import LyftDataset
+    from recondet3d_torch.data.lyft.dataset import iou3d as lyft_iou
+    from recondet3d_torch.data.nuscenes import export_nuimages_to_coco
+
+    fx = tests_module("data_fixtures")
+    tmp = tempfile.mkdtemp(prefix="recondet3d_data_")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    res = {}
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        roots = {name: os.path.join(tmp, name) for name in DATA_SIZES}
+        for name, root in roots.items():
+            os.makedirs(root)
+        fx.write_kitti(roots["kitti"], ids=("000000", "000001", "000002"), n_points=DATA_SIZES["kitti"])
+        fx.write_lyft(roots["lyft"], n_scenes=4, samples_per_scene=2)
+        fx.write_waymo(roots["waymo"], ids=("0000000", "0000001"), n_points=DATA_SIZES["waymo"])
+        fx.write_scannet(roots["scannet"], n_points=DATA_SIZES["scannet"])
+        fx.write_sunrgbd(roots["sunrgbd"], n_points=DATA_SIZES["sunrgbd"])
+        s3dis_pts = fx.write_s3dis(roots["s3dis"], n_points=DATA_SIZES["s3dis"])
+        res["fixtures_s"] = time.perf_counter() - t0
+        for name, root in roots.items():
+            out = open(os.path.join(tmp, f"{name}.out"), "w+")
+            procs[name] = dict(out=out, t0=time.perf_counter(), proc=subprocess.Popen(
+                [sys.executable, "-m", "recondet3d_torch.cli.create_data", name, "--root-path", root], cwd=repo,
+                env=env, stdout=out, stderr=subprocess.STDOUT, text=True))
+        cli = {}
+        for name, run in procs.items():
+            try:
+                rc = run["proc"].wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                run["proc"].kill()
+                run["proc"].wait()
+                rc = "timeout"
+            run["out"].seek(0)
+            text = run["out"].read()
+            run["out"].close()
+            cli[name] = dict(rc=rc, s=time.perf_counter() - run["t0"],
+                             wrote=[ln.split(" ", 1)[1] for ln in text.splitlines() if ln.startswith("wrote ")],
+                             tail=text[-600:] if rc != 0 else "")
+        bad = {k: v for k, v in cli.items() if v["rc"] != 0 or not v["wrote"]}
+        if bad:
+            fail(f"create_data: {bad}")
+
+        def load(path):
+            with open(path, "rb") as f:
+                return pickle.load(f)
+
+        kitti = load(cli["kitti"]["wrote"][0])["infos"]
+        waymo = load(cli["waymo"]["wrote"][0])["infos"]
+        sun = load(cli["sunrgbd"]["wrote"][0])
+        scan = load(cli["scannet"]["wrote"][0])
+        s3 = load(cli["s3dis"]["wrote"][0])
+        lyft_train, lyft_val = (load(p)["infos"] for p in cli["lyft"]["wrote"])
+        checks = dict(
+            kitti=len(kitti) == 3 and np.allclose(kitti[0]["gt_boxes"][0, :6], [10, -2, -1.5, 4.2, 1.8, 1.5])
+            and os.path.getsize(kitti[0]["lidar_path"]) == DATA_SIZES["kitti"] * 16,
+            waymo=len(waymo) == 2 and int(waymo[0]["num_lidar_pts"][0]) == DATA_SIZES["waymo"] // 2 + 20,
+            lyft=len(lyft_train) + len(lyft_val) == 8 and len(lyft_val) > 0
+            and all(info["gt_boxes"].shape[1] == 7 for info in lyft_train),
+            scannet=len(scan) == 1 and scan[0]["annos"]["gt_num"] == 2 and os.path.getsize(
+                os.path.join(roots["scannet"], scan[0]["pts_path"])) == DATA_SIZES["scannet"] * 24,
+            sunrgbd=sun[0]["annos"]["gt_num"] == 1 and os.path.getsize(
+                os.path.join(roots["sunrgbd"], sun[0]["pts_path"])) == 50000 * 24,
+            s3dis=s3[0]["annos"]["gt_num"] == 1 and np.allclose(
+                s3[0]["annos"]["gt_boxes_upright_depth"][0, 3:6], s3dis_pts[:50, :3].max(0) - s3dis_pts[:50, :3].min(0),
+                rtol=1e-6))
+        t0 = time.perf_counter()
+        coco_path = export_nuimages_to_coco(fx.write_nuimages(os.path.join(tmp, "nuimages")))
+        with open(coco_path) as f:
+            coco = json.load(f)
+        checks["nuimages"] = len(coco["images"]) == 1 and len(coco["annotations"]) == 1 \
+            and coco["annotations"][0]["bbox"] == [10, 20, 100, 50]
+        res["create_data"] = dict(cli=cli, checks=checks, nuimages_s=time.perf_counter() - t0,
+                                  sizes=dict(DATA_SIZES))
+        emit("create_data", **res["create_data"])
+        if not all(checks.values()):
+            fail(f"create_data: the infos are not what the fixtures hold: {checks}")
+
+        # Lyft: LyftDataset.evaluate over LYFT_EVAL samples, on the card and on the CPU
+        rng = np.random.default_rng(2401)
+        gt, results = fx.random_lyft_scene(rng, *LYFT_EVAL)
+        results.pop("unknown")
+        infos = [dict(token=tok, timestamp=i, gt_boxes=a["boxes"], gt_names=a["names"], lidar_path="", sweeps=[],
+                      cams={}) for i, (tok, a) in enumerate(gt.items())]
+        ann = os.path.join(tmp, "lyft_eval_infos.pkl")
+        with open(ann, "wb") as f:
+            pickle.dump(dict(infos=infos, metadata=dict(version="v1.01-train")), f)
+        ds = LyftDataset(ann_file=ann)
+        lyft_s = {}
+        lyft_m = {}
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lyft_m[dev] = ds.evaluate(results, device=dev)
+            lyft_s[dev] = time.perf_counter() - t0
+        iou_err = max(float(np.abs(lyft_iou(gt[t]["boxes"], np.stack([b for b, _, _ in results[t]]), "cuda")
+                                   - lyft_iou(gt[t]["boxes"], np.stack([b for b, _, _ in results[t]]), "cpu")).max())
+                      for t in list(gt)[:10])
+        ap_err = max(abs(lyft_m["cuda"][k] - lyft_m["cpu"][k]) for k in lyft_m["cpu"])
+        res["lyft"] = dict(samples=LYFT_EVAL[0], gt_per_sample=LYFT_EVAL[1], preds_per_sample=LYFT_EVAL[2],
+                           classes=len(ds.CLASSES), mAP=lyft_m["cuda"]["mAP"], max_abs_ap_diff_vs_cpu=ap_err,
+                           max_abs_iou_diff_vs_cpu=iou_err, s_per_eval=lyft_s,
+                           s_per_sample={k: v / LYFT_EVAL[0] for k, v in lyft_s.items()}, metrics=lyft_m["cuda"])
+        emit("lyft_eval", **res["lyft"])
+        if not (ap_err <= DATA_AP_TOL and iou_err <= DATA_IOU_TOL and 0.0 < lyft_m["cuda"]["mAP"] < 1.0):
+            fail(f"lyft eval on the card: {res['lyft']}")
+
+        # indoor: indoor_eval with yawed boxes (SUN RGB-D's classes), on the card and on the CPU
+        gts, dts = fx.random_indoor_scenes(np.random.default_rng(2402), *INDOOR_EVAL)
+        labels = dict(enumerate(SUNRGBD_NAMES))
+        ind_s, ind_m = {}, {}
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ind_m[dev] = indoor_eval(gts, dts, metric=(0.25, 0.5), label2cat=labels, device=dev)
+            ind_s[dev] = time.perf_counter() - t0
+        iou_err = max(float(np.abs(indoor_iou(g["gt_boxes_upright_depth"], d["boxes_3d"], "cuda")
+                                   - indoor_iou(g["gt_boxes_upright_depth"], d["boxes_3d"], "cpu")).max())
+                      for g, d in list(zip(gts, dts))[:10])
+        ap_err = max(abs(ind_m["cuda"][k] - ind_m["cpu"][k]) for k in ind_m["cpu"])
+        res["indoor"] = dict(scenes=INDOOR_EVAL[0], gt_per_scene=INDOOR_EVAL[1], preds_per_scene=INDOOR_EVAL[2],
+                             classes=INDOOR_EVAL[3], mAP_025=ind_m["cuda"]["mAP_0.25"],
+                             mAP_050=ind_m["cuda"]["mAP_0.50"],
+                             max_abs_ap_diff_vs_cpu=ap_err, max_abs_iou_diff_vs_cpu=iou_err, s_per_eval=ind_s,
+                             s_per_sample={k: v / INDOOR_EVAL[0] for k, v in ind_s.items()})
+        emit("indoor_eval", **res["indoor"])
+        if not (ap_err <= DATA_AP_TOL and iou_err <= DATA_IOU_TOL and 0.0 < ind_m["cuda"]["mAP_0.25"] < 1.0):
+            fail(f"indoor eval on the card: {res['indoor']}")
+    finally:
+        for run in procs.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def ptxas_report(log):
     """Per kernel (mangled name) from ``nvcc -Xptxas -v``: registers at entry,
     spill stores / loads, stack and static shared-memory bytes."""
@@ -4637,6 +4987,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # 23. the LiDAR model zoo at published widths: PointNet++ (VoteNet), PointPillars (nuScenes), Part-A2's U-Net
     lidar_res = lidar_phase(smi, exchange_us)
+    torch.cuda.empty_cache()
+    t24 = time.perf_counter()
+    tp_res = tensor_parallel_phase(fps_case_of)
+    data_res = datasets_phase()
+    emit("phase24", s=time.perf_counter() - t24)
     # 15. kernel table: per kernel, its numbers summed over one request's launch
     # mix as counted on the main path in phase 8 (per-shape numbers under
     # "shapes"), and the kernels still to port
@@ -4898,6 +5253,25 @@ def main(argv=None):
         max_abs_err=max(table["kernels"][1]["max_abs_err"], max(c["max_abs_err"] for c in lidar_fps)))
     table["lidar"] = {k: ({kk: vv for kk, vv in v.items() if kk != "fps_cases"} if isinstance(v, dict) else v)
                       for k, v in lidar_res.items()}
+    tp_steps = {k: v for k, v in tp_res.items() if k in ("finetune", "train")}
+    table["kernels"][0].update(
+        launches_tensor_parallel_rank={k: sum(int(n) for n in v["launches_per_rank"][0]["fwd"].values())
+                                       for k, v in tp_steps.items()},
+        tensor_parallel_per=f"each of {TP_MODEL} gloo ranks over {TP_STEPS} steps of phase 24a (fine-tuning "
+                            "da3-large, the production step of nested-giant-large)",
+        tensor_parallel_shapes=tp_res["fwd_cases"],
+        max_abs_err=max(table["kernels"][0]["max_abs_err"], max(c["max_abs_err"] for c in tp_res["fwd_cases"])))
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        row = next(r for r in table["kernels"] if r["name"] == name)
+        kind = "dq" if name == "flash_bwd_dq" else "dkv"
+        row.update(launches_tensor_parallel_rank={k: sum(int(n) for n in v["launches_per_rank"][0][kind].values())
+                                                  for k, v in tp_steps.items()},
+                   tensor_parallel_shapes=[dict(name=c["name"], shape=c["shape"], **c[kind], plain_ms=c["plain_ms"],
+                                                library_ms=c["library_ms"], errors=c["errors"])
+                                           for c in tp_res["bwd_cases"]],
+                   max_abs_err=max(row["max_abs_err"], max(c["max_abs_err"] for c in tp_res["bwd_cases"])))
+    table["tensor_parallel"] = {k: v for k, v in tp_res.items() if k not in ("fwd_cases", "bwd_cases")}
+    table["datasets"] = data_res
     short_row = next(r for r in table["kernels"] if r["name"] == "attn_cc_short_fwd")
     short_row.update(launches_da3_api_poses=api_res["f32_launches"], da3_api_case=api_res["f32_case"],
                      max_abs_err=max(short_row["max_abs_err"], api_res["f32_case"]["errors"]["short"]["max_abs_err"]))

@@ -13,6 +13,6 @@ Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
 from recondet3d_torch.utils.device import resolve_device
+from recondet3d_torch.version import __version__
 
-__version__ = "0.1.0"
 __all__ = ["__version__", "resolve_device"]

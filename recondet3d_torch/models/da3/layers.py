@@ -13,6 +13,12 @@ master parameters are cast to ``dtype`` at use as flax casts
 ``LayerNormFp32`` computes in fp32 and casts back. Attention goes through
 ``ops.attention.flash_attention`` (the hand-written kernels on CUDA
 tensors, forward and backward).
+
+Tensor parallelism: ``parallel/tp.py`` ``shard_params`` leaves ``Attention``,
+``Mlp`` and ``SwiGLUFFNFused`` with their shard of the weights and a ``tp``
+(the ``model`` group); each then runs on its local heads / hidden slice and
+sums its output over the group once, before LayerScale and the residual.
+``tp`` is None otherwise, and the forward is the one-process one.
 """
 
 from __future__ import annotations
@@ -47,8 +53,11 @@ class LayerNormFp32(nn.LayerNorm):
     """LayerNorm computed in fp32 (autocast semantics), cast back to the input
     dtype. Its parameters stay fp32."""
 
-    def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
+    def forward(self, x, tp=None):
+        w, b = self.weight, self.bias
+        if tp is not None:  # shared by heads split over the model group: its gradient is the sum over the group
+            w, b = tp.enter(w), tp.enter(b)
+        return F.layer_norm(x.float(), self.normalized_shape, w, b, self.eps).to(x.dtype)
 
 
 class Linear(nn.Linear):
@@ -73,9 +82,12 @@ class Mlp(nn.Module):
         out_features = out_features or in_features
         self.fc1 = Linear(in_features, hidden_features, dtype=dtype, param_dtype=param_dtype, device=device)
         self.fc2 = Linear(hidden_features, out_features, dtype=dtype, param_dtype=param_dtype, device=device)
+        self.tp = None  # parallel/tp.py ModelParallel once sharded
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        if self.tp is None:
+            return self.fc2(F.gelu(self.fc1(x)))
+        return self.tp.exit(self.fc2, F.gelu(self.fc1(self.tp.enter(x))))
 
 
 class SwiGLUFFNFused(nn.Module):
@@ -89,10 +101,14 @@ class SwiGLUFFNFused(nn.Module):
         hidden = (int(hidden_features * 2 / 3) + 7) // 8 * 8
         self.w12 = Linear(in_features, 2 * hidden, dtype=dtype, param_dtype=param_dtype, device=device)
         self.w3 = Linear(hidden, out_features, dtype=dtype, param_dtype=param_dtype, device=device)
+        self.tp = None  # parallel/tp.py ModelParallel once sharded
 
     def forward(self, x):
-        x1, x2 = self.w12(x).chunk(2, dim=-1)
-        return self.w3(F.silu(x1) * x2)
+        if self.tp is None:
+            x1, x2 = self.w12(x).chunk(2, dim=-1)
+            return self.w3(F.silu(x1) * x2)
+        x1, x2 = self.w12(self.tp.enter(x)).chunk(2, dim=-1)  # this rank's slice of each half
+        return self.tp.exit(self.w3, F.silu(x1) * x2)
 
 
 class LayerScale(nn.Module):
@@ -179,14 +195,19 @@ class Attention(nn.Module):
         else:
             self.q_norm = self.k_norm = None
         self.proj = Linear(dim, dim, bias=proj_bias, dtype=dtype, param_dtype=param_dtype, device=device)
+        self.tp = None  # parallel/tp.py ModelParallel once sharded: this rank's heads only
 
     def forward(self, x, pos=None, kv_len=None, rope_tabs=None):
         B, N, C = x.shape
-        H = self.num_heads
-        q, k, v = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4).unbind(0)
+        D = C // self.num_heads
+        tp = self.tp
+        H = self.num_heads if tp is None else self.num_heads // tp.size
+        if tp is not None:
+            x = tp.enter(x)
+        q, k, v = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
         if self.q_norm is not None:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
+            q = self.q_norm(q, tp)
+            k = self.k_norm(k, tp)
         if self.use_rope and rope_tabs is not None:
             cos, sin = rope_tabs
             q = apply_rope_tables(q, cos, sin)
@@ -194,8 +215,8 @@ class Attention(nn.Module):
         elif self.use_rope and pos is not None:
             q = rope_2d(q, pos, self.rope_freq)
             k = rope_2d(k, pos, self.rope_freq)
-        o = flash_attention(q, k, v, kv_len=kv_len, impl=self.attn_impl)
-        return self.proj(o.transpose(1, 2).reshape(B, N, C))
+        o = flash_attention(q, k, v, kv_len=kv_len, impl=self.attn_impl).transpose(1, 2).reshape(B, N, H * D)
+        return self.proj(o) if tp is None else tp.exit(self.proj, o)
 
 
 class Block(nn.Module):

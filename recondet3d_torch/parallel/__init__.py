@@ -1,5 +1,7 @@
-"""Data parallelism over ``torch.distributed`` (port of ``recondet3d/parallel``;
-its tensor-parallel ``tp.py`` is not ported yet)."""
+"""Data and tensor parallelism over ``torch.distributed`` (port of
+``recondet3d/parallel``): the ``(data, model)`` mesh, the batch-global
+reductions over ``data`` and the Megatron-style layout of the DA3 blocks
+over ``model`` (``tp.py``)."""
 
 from recondet3d_torch.parallel.distributed import (
     init_distributed,
@@ -24,3 +26,4 @@ from recondet3d_torch.parallel.mesh import (
     shard_batch,
     world_size,
 )
+from recondet3d_torch.parallel.tp import da3_param_shardings, shard_params

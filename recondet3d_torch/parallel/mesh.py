@@ -20,8 +20,11 @@ mean over equal per-rank shares (the occupancy loss's ``mean``, the point
 losses) already is; a sum, or a sum over a global count, is multiplied by
 ``data_parallel_size()`` where it is formed.
 
-No ``model`` extent yet: a mesh with ``model > 1`` raises, naming tensor
-parallelism (``recondet3d/parallel/tp.py``) as still to be ported.
+A ``model`` extent > 1 is tensor parallelism (``parallel/tp.py``): the
+ranks of one ``model`` group hold the same samples and shards of the DA3
+blocks' weights. The batch-global reductions run over the ``data`` group
+only, so a sample is counted once however many model ranks hold it. Rank
+``d * model + m`` sits at data index ``d``, model index ``m``.
 """
 
 from __future__ import annotations
@@ -81,16 +84,28 @@ class Mesh:
         """This rank's position along the data axis."""
         return 0 if self.device_mesh is None else self.device_mesh.get_local_rank(DATA_AXIS)
 
+    @property
+    def model_group(self):
+        """The process group of the model axis (None with one process)."""
+        return None if self.device_mesh is None else self.device_mesh.get_group(MODEL_AXIS)
+
+    @property
+    def model_index(self) -> int:
+        """This rank's position along the model axis."""
+        return 0 if self.device_mesh is None else self.device_mesh.get_local_rank(MODEL_AXIS)
+
 
 def make_mesh(data: Optional[int] = None, model: int = 1, device_type: Optional[str] = None) -> Mesh:
     """A ``(data, model)`` mesh over the ranks of the process group (one
     process without a group: 1x1). ``data`` defaults to the world size over
-    ``model``; ``device_type`` to ``cuda`` where the group's backend is NCCL."""
-    if model != 1:
-        raise NotImplementedError("a 'model' mesh extent > 1 is tensor parallelism (recondet3d/parallel/tp.py), "
-                                  "which the port does not have yet (ROADMAP §1 item 11)")
+    ``model``; ``device_type`` to ``cuda`` where the group's backend is NCCL.
+    ``Mesh(data, model)`` itself, without processes, is a layout for
+    ``tp.da3_param_shardings`` to read."""
     n = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    data = n if data is None else data
+    if data is None:
+        if n % model:
+            raise ValueError(f"{n} processes not divisible by model={model}")
+        data = n // model
     if data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} processes")
     if n == 1 and not (dist.is_available() and dist.is_initialized()):

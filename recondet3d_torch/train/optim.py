@@ -16,6 +16,17 @@ subtrees out of the optimizer. ``Optimizer`` is that chain written out:
   leaf of the JAX tree gets an update, so its moments and weights decay);
 - frozen parameters get no update and no moment buffers.
 
+Under tensor parallelism (``parallel/tp.py``) a rank holds shards of some
+parameters and their moments. The clip's norm is the norm of the whole,
+unsharded gradient, as ``optax.clip_by_global_norm`` reads it under
+GSPMD: the squared norms of the sharded gradients are summed over the
+``model`` group, the replicated ones counted once. The replicated gradients
+are first averaged over the group: every rank computes the same values, but
+kernels that sum with atomics (cuDNN's backward convolutions, the bilinear
+upsampling's backward) make them differ in their last bits, and replicas
+that took different steps would drift apart. AdamW is elementwise, so each
+rank updates its shard alone.
+
 Updates are in place on the model's parameters (``torch._foreach`` over
 the whole list: a handful of launches per step, not one per tensor).
 """
@@ -27,7 +38,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-__all__ = ["cyclic_schedule", "build_optimizer", "Optimizer", "is_frozen"]
+__all__ = ["cyclic_schedule", "build_optimizer", "Optimizer", "is_frozen", "average_over"]
 
 _B2, _EPS = 0.999, 1e-8  # optax.adamw's defaults, which the JAX package leaves as they are
 
@@ -66,9 +77,11 @@ class Optimizer:
 
     def __init__(self, named_parameters: Iterable[Tuple[str, torch.nn.Parameter]],
                  lr: Callable[[int], float], b1: Callable[[int], float], weight_decay: float = 0.01,
-                 grad_clip: Optional[float] = 100.0, frozen_patterns=()):
+                 grad_clip: Optional[float] = 100.0, frozen_patterns=(), sharded=(), model_group=None):
         named = [(n, p) for n, p in named_parameters if p.requires_grad]
         self.all_params: List[torch.nn.Parameter] = [p for _, p in named]
+        self.sharded = [n in set(sharded) for n, _ in named]  # per entry of all_params
+        self.model_group = model_group
         self.names = [n for n, _ in named if not is_frozen(n, frozen_patterns)]
         self.params = [p for n, p in named if not is_frozen(n, frozen_patterns)]
         self.lr, self.b1 = lr, b1
@@ -88,10 +101,21 @@ class Optimizer:
         gradient norm before clipping (0-d fp32 tensor)."""
         lr, b1, b2 = self.lr(self.count), self.b1(self.count), _B2
         self.count += 1
-        grads_all = [p.grad for p in self.all_params if p.grad is not None]
-        if not grads_all:
+        have = [(p.grad, s) for p, s in zip(self.all_params, self.sharded) if p.grad is not None]
+        if not have:
             raise RuntimeError("Optimizer.step: no parameter has a gradient")
-        norm = torch.linalg.vector_norm(torch.stack([n.float() for n in torch._foreach_norm(grads_all)]))
+        if self.model_group is not None:
+            average_over(self.model_group, [g for g, s in have if not s])
+        # fp64 sums: the norm of a gradient cut into shards then reads as the norm of the whole to ~1e-15, where fp32
+        # sums alone are ~1e-6 off
+        norms = torch.stack(torch._foreach_norm([g for g, _ in have], 2, dtype=torch.float64))
+        if self.model_group is None:
+            norm = torch.linalg.vector_norm(norms).float()
+        else:
+            shard = torch.tensor([s for _, s in have], device=norms.device)
+            sq = torch.where(shard, norms.square(), 0.0).sum().reshape(1)
+            torch.distributed.all_reduce(sq, group=self.model_group)  # the shards' squares over the model group
+            norm = (torch.where(shard, 0.0, norms.square()).sum() + sq[0]).sqrt().float()
         if not self.params:
             return norm
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
@@ -123,18 +147,37 @@ class Optimizer:
             nu.copy_(state["nu"][name])
 
 
+def average_over(group, tensors: List[torch.Tensor]) -> None:
+    """Replace each floating tensor by its mean over ``group``, in place: one all-reduce a dtype over the flattened
+    tensors. The result is the same bits on every rank; where the ranks held equal tensors and the group's size is
+    a power of two, it is their bits (n x / n is exact)."""
+    n = torch.distributed.get_world_size(group)
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        if t.is_floating_point():
+            by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        torch.distributed.all_reduce(flat, group=group)
+        flat /= n
+        for t, v in zip(ts, flat.split([t.numel() for t in ts])):
+            t.copy_(v.view_as(t))
+
+
 def build_optimizer(named_parameters, lr: float = 1e-3, weight_decay: float = 0.01, total_steps: int = 1000,
                     grad_clip: Optional[float] = 100.0, cyclic_lr: bool = True, cyclic_momentum: bool = True,
                     momentum_target_ratio=(0.8947368421052632, 1.0), base_momentum: float = 0.9,
-                    frozen_patterns=("da3",)) -> Optimizer:
+                    frozen_patterns=("da3",), sharded=(), model_group=None) -> Optimizer:
     """AdamW (lr 1e-3, wd 0.01), global-norm clip at 100, cyclic learning
     rate (x10 up over 40 % of the steps, then down to x1e-4) and cyclic
     beta1 (0.9 -> 0.805 -> 0.9), as the reference's training config.
     ``frozen_patterns``: parameters whose dotted name has a component equal
     to one of these are left out of the optimizer entirely (no update, no
-    moment buffers; the reference freezes the DA3 backbone)."""
+    moment buffers; the reference freezes the DA3 backbone). ``sharded``:
+    the names of the parameters cut over ``model_group`` (tensor
+    parallelism), whose squared gradient norms the clip sums over it."""
     lr_sched = cyclic_schedule(lr, total_steps) if cyclic_lr else (lambda step: lr)
     b1_sched = (cyclic_schedule(base_momentum, total_steps, target_ratio=momentum_target_ratio)
                 if cyclic_momentum else (lambda step: base_momentum))
     return Optimizer(named_parameters, lr_sched, b1_sched, weight_decay=weight_decay, grad_clip=grad_clip,
-                     frozen_patterns=tuple(frozen_patterns))
+                     frozen_patterns=tuple(frozen_patterns), sharded=sharded, model_group=model_group)

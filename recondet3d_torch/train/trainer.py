@@ -20,13 +20,25 @@ batch's (the losses averaged over the ranks). Parameters that
 ``frozen_patterns`` freezes are taken out of autograd (``requires_grad``
 False) before wrapping: DDP would otherwise wait for their gradients. The
 state, the optimizer and the checkpoints keep the inner module's parameter
-names; only rank 0 writes checkpoints and TensorBoard logs. The JAX
-trainer's tensor-parallel layouts are not ported (``parallel/tp.py``).
+names; only rank 0 writes checkpoints and TensorBoard logs.
+
+Tensor parallelism. On a mesh with a ``model`` extent > 1 the Trainer lays
+the model out with ``parallel/tp.py`` ``shard_params`` when it is made
+(the JAX trainer does so in ``init_state``; here the optimizer's moments
+and DDP are built from the parameters at construction, so the layout comes
+first): the DA3 blocks hold their shards and sum over the ``model`` group;
+the optimizer averages the replicated gradients over it and its clip reads
+the norm of the whole gradient; the floating buffers (batch statistics) are
+averaged over it after each update, so that the replicas stay the same
+bits; DDP, when ``data > 1``, averages over the ``data`` group only.
+``TrainState``'s state dict holds full tensors, gathered over ``model``,
+and loads onto any layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
@@ -36,7 +48,8 @@ import torch.nn as nn
 from recondet3d_torch.parallel.distributed import is_main_process
 from recondet3d_torch.parallel.mesh import Mesh, data_parallel_size, global_sum, local_mesh_context, make_mesh, \
     shard_batch
-from recondet3d_torch.train.optim import Optimizer, build_optimizer, is_frozen
+from recondet3d_torch.parallel.tp import gather_full, param_layouts, shard_full, shard_params
+from recondet3d_torch.train.optim import Optimizer, average_over, build_optimizer, is_frozen
 from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = ["TrainState", "Trainer", "make_train_step"]
@@ -52,16 +65,33 @@ class TrainState:
     optimizer: Optimizer
 
     def state_dict(self) -> Dict[str, Any]:
-        return {"step": self.step, "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+        """Full tensors: the shards of a tensor-parallel model gathered over its ``model`` group (a collective:
+        every rank of the group calls this)."""
+        layouts = param_layouts(self.model)
+        group = self.optimizer.model_group
+
+        def full(tree):
+            return {k: gather_full(v, layouts[k], group) if k in layouts else v for k, v in tree.items()}
+
+        opt = self.optimizer.state_dict()
+        opt = dict(opt, mu=full(opt["mu"]), nu=full(opt["nu"]))
+        return {"step": self.step, "model": full(self.model.state_dict()), "optimizer": opt}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """From full tensors, whatever layout wrote them: this rank's shards are cut out of them."""
+        layouts = param_layouts(self.model)
+
+        def local(tree):
+            return {k: shard_full(v, layouts[k]) if k in layouts else v for k, v in tree.items()}
+
         self.step = int(state["step"])
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.model.load_state_dict(local(state["model"]))
+        opt = state["optimizer"]
+        self.optimizer.load_state_dict(dict(opt, mu=local(opt["mu"]), nu=local(opt["nu"])))
 
 
-def make_train_step(model: nn.Module, optimizer: Optimizer):
-    """Returns train_step(state, batch) -> (state, metrics).
+def make_train_step(model: nn.Module, optimizer: Optimizer, after_step: Optional[Callable[[], None]] = None):
+    """Returns train_step(state, batch) -> (state, metrics); ``after_step`` runs after each update.
 
     ``model(return_loss=True, **batch)`` must return (losses, aux). Metrics
     are 0-d tensors: ``loss`` (the sum of the losses), ``grad_norm`` (the
@@ -78,6 +108,8 @@ def make_train_step(model: nn.Module, optimizer: Optimizer):
             total.backward()
         with stage("optimizer"):
             grad_norm = optimizer.step()
+            if after_step is not None:
+                after_step()
         state.step += 1
         dp = data_parallel_size()
         with torch.no_grad():
@@ -96,8 +128,8 @@ class Trainer:
     reference freezes the DA3 backbone); ``()`` trains everything, the
     fine-tuning mode, which with a model built with ``freeze_da3=False`` is
     what sends gradients through the flash-attention backward kernels.
-    ``mesh``: the data-parallel mesh (default: one over this process's
-    group, 1x1 without one); see the module docstring."""
+    ``mesh``: the ``(data, model)`` mesh (default: data-parallel over this
+    process's group, 1x1 without one); see the module docstring."""
 
     model: nn.Module
     total_steps: int
@@ -118,11 +150,13 @@ class Trainer:
             for name, p in self.model.named_parameters():
                 if is_frozen(name, self.frozen_patterns):
                     p.requires_grad_(False)
+        shard_params(self.model, self.mesh)
         self.optimizer = build_optimizer(
             self.model.named_parameters(), lr=self.lr, weight_decay=self.weight_decay, total_steps=self.total_steps,
-            grad_clip=self.grad_clip, frozen_patterns=self.frozen_patterns)
+            grad_clip=self.grad_clip, frozen_patterns=self.frozen_patterns, sharded=tuple(param_layouts(self.model)),
+            model_group=self.mesh.model_group if self.mesh.model > 1 else None)
         module = self.model
-        if parallel:
+        if parallel and self.mesh.data > 1:
             from torch.nn.parallel import DistributedDataParallel
 
             device = next(self.model.parameters()).device
@@ -131,7 +165,12 @@ class Trainer:
             module = DistributedDataParallel(
                 self.model, device_ids=[device.index] if device.type == "cuda" else None, broadcast_buffers=False,
                 find_unused_parameters=True, process_group=self.mesh.group)
-        self._step_fn = make_train_step(module, self.optimizer)
+        after = None
+        if self.mesh.model > 1:
+            # the batch statistics are computed on every model rank; atomics in a forward can part them by a bit
+            buffers = [b for b in self.model.buffers() if b.is_floating_point()]
+            after = functools.partial(average_over, self.mesh.model_group, buffers) if buffers else None
+        self._step_fn = make_train_step(module, self.optimizer, after)
         self._writer = None
 
     def init_state(self) -> TrainState:

@@ -130,13 +130,15 @@ def run(rank, world, port, job_file, out_dir, device="cpu"):
         torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(world, job_file, out_dir, device="cpu", timeout=600.0):
-    """Run ``run`` in ``world`` fresh processes (a free localhost port for their group) and return each rank's
-    results; raises if a rank fails, and stops them all if they have not ended within ``timeout`` seconds."""
+def spawn_ranks(world, job_file, out_dir, device="cpu", timeout=600.0, target=None, extra=()):
+    """Run ``target(rank, world, port, job_file, out_dir, device, *extra)`` (default ``run``) in ``world`` fresh
+    processes (a free localhost port for their group) and return each rank's results; raises if a rank fails, and
+    stops them all if they have not ended within ``timeout`` seconds."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    context = torch.multiprocessing.spawn(run, args=(world, port, job_file, out_dir, device), nprocs=world, join=False)
+    context = torch.multiprocessing.spawn(target or run, args=(world, port, job_file, out_dir, device, *extra),
+                                          nprocs=world, join=False)
     deadline = time.monotonic() + timeout
     while not context.join(timeout=max(deadline - time.monotonic(), 0.0)):
         if time.monotonic() >= deadline:

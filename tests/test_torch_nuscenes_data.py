@@ -83,8 +83,15 @@ def test_create_data_writes_the_same_info_pickles(roots, name, split):
 
 
 def test_create_data_other_datasets_name_the_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="15b"):
-        create_data(["kitti", "--root-path", str(tmp_path)])
+    """The roadmap item these choices named (15b) is done: they dispatch to their converters as the JAX CLI does,
+    and on a root without their layout both CLIs raise the same error (tests/test_torch_data_converters.py runs
+    every choice on its fixture)."""
+    for name in ("kitti", "waymo", "lyft", "scannet", "sunrgbd"):
+        with pytest.raises(FileNotFoundError) as ref:
+            j_create_data([name, "--root-path", str(tmp_path)])
+        with pytest.raises(FileNotFoundError) as got:
+            create_data([name, "--root-path", str(tmp_path)])
+        assert str(got.value) == str(ref.value), name
 
 
 @pytest.mark.parametrize("test_mode", [False, True])
