@@ -1,0 +1,11 @@
+"""Device ms a request in the CenterHead by the program's span ``det_head``,
+the program's own reading of ``det_head_ms``."""
+
+LAYER = "detection head"
+MOVES = "frames_per_s"
+UNIT = "ms"
+
+
+def read(run):
+    ms = run["spans_ms"].get("det_head")
+    return None if ms is None or run["kind"] != "infer" else ms / run["units"]

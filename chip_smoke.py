@@ -1774,7 +1774,7 @@ def profile(resdet, request, img, runs=2):
     stage_ms = {"request": t0.elapsed_time(t1) / runs}
     for name, pairs in events.items():
         stage_ms[name] = float(np.sum([a.elapsed_time(b) for a, b in pairs])) / runs
-    stage_ms.update({k: v / runs for k, v in times.items() if not k.endswith("/calls")})
+    stage_ms.update({k: v / runs for k, v in times.items() if "/" not in k})
 
     emit("profile", stage_ms=stage_ms, **device_profile(lambda: request(img)))
 
@@ -2114,7 +2114,7 @@ def run_train_steps(phase, model, trainer, batch, fps_case_of, fwd_case_of):
     res = dict(
         steps=TRAIN_STEPS, scenes_per_step=TRAIN_B, views=S, image=[IMG_H, IMG_W], gt_points=GT_POINTS,
         ms_per_step=times, ms_mean=float(np.mean(times)),
-        stage_ms_per_step={k: v / TRAIN_STEPS for k, v in stages.items() if not k.endswith("/calls")},
+        stage_ms_per_step={k: v / TRAIN_STEPS for k, v in stages.items() if "/" not in k},
         loss=[h["loss"] for h in history], grad_norm=[h["grad_norm"] for h in history],
         grad_norm_last_step=norm(list(grads.values())),
         da3_grad_norm_last_step=norm([g for n, g in grads.items() if ".da3." in n]),

@@ -30,6 +30,7 @@ from recondet3d_torch.utils.alignment import (
 from recondet3d_torch.utils.constants import PATCH_SIZE
 from recondet3d_torch.utils.geometry import affine_inverse, as_homogeneous, map_pdf_to_opacity
 from recondet3d_torch.utils.ray_utils import get_extrinsic_from_camray
+from recondet3d_torch.utils.stage_timer import stage
 from recondet3d_torch.utils.transforms import pose_encoding_to_extri_intri
 
 __all__ = ["DepthAnything3Net", "NestedDepthAnything3Net"]
@@ -62,23 +63,25 @@ class DepthAnything3Net(nn.Module):
         if extrinsics is not None and self.cam_enc is not None:
             cam_token = self.cam_enc(extrinsics, intrinsics, (H, W))
 
-        feats, aux_feats = self.backbone.pretrained(
-            x, cam_token=cam_token, export_feat_layers=tuple(export_feat_layers),
-            ref_view_strategy=ref_view_strategy,
-        )
-        if isinstance(self.head, DualDPT):
-            # the ray branch is dropped unused when a camera decoder gives the pose and the rays are not asked for
-            output = dict(self.head(feats, H, W, patch_start_idx=0,
-                                    with_aux=self.cam_dec is None or use_ray_pose))
-        else:
-            output = dict(self.head(feats, H, W, patch_start_idx=0))
-        if use_ray_pose:
-            output = self._ray_pose(output, H, W)
-        else:
-            output = self._camera_estimation(feats, H, W, output)
-        if infer_gs and self.gs_head is not None:
-            output = self._gs(feats, H, W, output, x, extrinsics)
-        output = self._mono_sky(output)
+        with stage("da3_trunk"):
+            feats, aux_feats = self.backbone.pretrained(
+                x, cam_token=cam_token, export_feat_layers=tuple(export_feat_layers),
+                ref_view_strategy=ref_view_strategy,
+            )
+        with stage("da3_heads"):
+            if isinstance(self.head, DualDPT):
+                # the ray branch is dropped unused when a camera decoder gives the pose and the rays are not asked for
+                output = dict(self.head(feats, H, W, patch_start_idx=0,
+                                        with_aux=self.cam_dec is None or use_ray_pose))
+            else:
+                output = dict(self.head(feats, H, W, patch_start_idx=0))
+            if use_ray_pose:
+                output = self._ray_pose(output, H, W)
+            else:
+                output = self._camera_estimation(feats, H, W, output)
+            if infer_gs and self.gs_head is not None:
+                output = self._gs(feats, H, W, output, x, extrinsics)
+            output = self._mono_sky(output)
 
         if export_feat_layers:
             output["aux"] = {
@@ -171,22 +174,23 @@ class NestedDepthAnything3Net(nn.Module):
         )
         metric_output = self.da3_metric(x)
 
-        metric_depth = apply_metric_scaling(metric_output["depth"], output["intrinsics"])
-        non_sky = compute_sky_mask(metric_output["sky"], threshold=0.3)
+        with stage("da3_align"):
+            metric_depth = apply_metric_scaling(metric_output["depth"], output["intrinsics"])
+            non_sky = compute_sky_mask(metric_output["sky"], threshold=0.3)
 
-        median_conf = masked_quantile(output["depth_conf"], non_sky, 0.5)
-        align_mask = compute_alignment_mask(
-            output["depth_conf"], non_sky, output["depth"], metric_depth, median_conf
-        )
-        scale = least_squares_scale_scalar(metric_depth, output["depth"], mask=align_mask)
-        scale = torch.where(global_sum(align_mask.sum()) > 0, scale, torch.ones_like(scale))
+            median_conf = masked_quantile(output["depth_conf"], non_sky, 0.5)
+            align_mask = compute_alignment_mask(
+                output["depth_conf"], non_sky, output["depth"], metric_depth, median_conf
+            )
+            scale = least_squares_scale_scalar(metric_depth, output["depth"], mask=align_mask)
+            scale = torch.where(global_sum(align_mask.sum()) > 0, scale, torch.ones_like(scale))
 
-        depth = output["depth"] * scale
-        extr = output["extrinsics"].clone()
-        extr[..., :3, 3] = extr[..., :3, 3] * scale
+            depth = output["depth"] * scale
+            extr = output["extrinsics"].clone()
+            extr[..., :3, 3] = extr[..., :3, 3] * scale
 
-        non_sky_max = torch.clamp(masked_quantile(depth, non_sky, 0.99), max=self.sky_depth_def)
-        depth, depth_conf = set_sky_regions_to_max_depth(depth, output["depth_conf"], non_sky, non_sky_max)
+            non_sky_max = torch.clamp(masked_quantile(depth, non_sky, 0.99), max=self.sky_depth_def)
+            depth, depth_conf = set_sky_regions_to_max_depth(depth, output["depth_conf"], non_sky, non_sky_max)
 
         output["depth"] = depth
         output["depth_conf"] = depth_conf

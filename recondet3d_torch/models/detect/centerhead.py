@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from recondet3d_torch.models.refine.bev_unet import FlaxBatchNorm2d
 from recondet3d_torch.parallel.mesh import data_parallel_size, global_sum
+from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = ["CenterHead", "gaussian_radius", "draw_heatmap", "init_head_parameters_", "DEFAULT_TASKS"]
 
@@ -249,49 +250,51 @@ class CenterHead(nn.Module):
         (``task_class_names()``), or ``class_names`` when given."""
         from recondet3d_torch.ops.iou3d import nms_bev
 
-        pcr, vs, fs = self.point_cloud_range, self.voxel_size, self.out_size_factor
-        label_base = 0
-        outputs = []
-        for pred in preds:
-            hm = torch.sigmoid(pred["heatmap"])
-            B, H, W, C = hm.shape
-            # lax.top_k's order: equal scores (the many empty cells of a random head) lowest index first, which
-            # torch.topk does not promise
-            scores, idx = torch.sort(hm.reshape(B, -1), dim=1, descending=True, stable=True)
-            scores, idx = scores[:, :max_per_task], idx[:, :max_per_task]
-            cls = idx % C
-            pix = idx // C
-            iy, ix = pix // W, pix % W
+        with stage("decode"):
+            pcr, vs, fs = self.point_cloud_range, self.voxel_size, self.out_size_factor
+            label_base = 0
+            outputs = []
+            for pred in preds:
+                hm = torch.sigmoid(pred["heatmap"])
+                B, H, W, C = hm.shape
+                # lax.top_k's order: equal scores (the many empty cells of a random head) lowest index first, which
+                # torch.topk does not promise
+                scores, idx = torch.sort(hm.reshape(B, -1), dim=1, descending=True, stable=True)
+                scores, idx = scores[:, :max_per_task], idx[:, :max_per_task]
+                cls = idx % C
+                pix = idx // C
+                iy, ix = pix // W, pix % W
 
-            def gather(field):
-                f = pred[field].reshape(B, H * W, -1)
-                return torch.gather(f, 1, pix[..., None].expand(-1, -1, f.shape[-1]))
+                def gather(field):
+                    f = pred[field].reshape(B, H * W, -1)
+                    return torch.gather(f, 1, pix[..., None].expand(-1, -1, f.shape[-1]))
 
-            reg, height, dim = gather("reg"), gather("height"), torch.exp(gather("dim"))
-            rot, vel = gather("rot"), gather("vel")
-            x = (ix.float() + reg[..., 0]) * vs[0] * fs + pcr[0]
-            y = (iy.float() + reg[..., 1]) * vs[1] * fs + pcr[1]
-            z = height[..., 0] - dim[..., 2] * 0.5  # gravity -> bottom
-            yaw = torch.atan2(rot[..., 0], rot[..., 1])
-            boxes = torch.cat([torch.stack([x, y, z], -1), dim, yaw[..., None], vel], dim=-1)
-            outputs.append((boxes, scores, cls + label_base))
-            label_base += C
+                reg, height, dim = gather("reg"), gather("height"), torch.exp(gather("dim"))
+                rot, vel = gather("rot"), gather("vel")
+                x = (ix.float() + reg[..., 0]) * vs[0] * fs + pcr[0]
+                y = (iy.float() + reg[..., 1]) * vs[1] * fs + pcr[1]
+                z = height[..., 0] - dim[..., 2] * 0.5  # gravity -> bottom
+                yaw = torch.atan2(rot[..., 0], rot[..., 1])
+                boxes = torch.cat([torch.stack([x, y, z], -1), dim, yaw[..., None], vel], dim=-1)
+                outputs.append((boxes, scores, cls + label_base))
+                label_base += C
 
-        label_map = None
-        if class_names is not None:
-            label_map = np.array([list(class_names).index(n) for n in self.task_class_names()], np.int64)
-        results = []
-        for b in range(outputs[0][0].shape[0]):
-            boxes = torch.cat([o[0][b] for o in outputs])
-            scores = torch.cat([o[1][b] for o in outputs])
-            labels = torch.cat([o[2][b] for o in outputs])
-            keep = scores >= score_threshold
-            boxes, scores, labels = boxes[keep], scores[keep], labels[keep]
-            if len(boxes):  # the IoU matrix where the predictions are; the greedy walk on the host
-                keep = nms_bev(boxes[:, [0, 1, 3, 4, 6]], scores, nms_thresh)
+            label_map = None
+            if class_names is not None:
+                label_map = np.array([list(class_names).index(n) for n in self.task_class_names()], np.int64)
+            results = []
+            for b in range(outputs[0][0].shape[0]):
+                boxes = torch.cat([o[0][b] for o in outputs])
+                scores = torch.cat([o[1][b] for o in outputs])
+                labels = torch.cat([o[2][b] for o in outputs])
+                keep = scores >= score_threshold
                 boxes, scores, labels = boxes[keep], scores[keep], labels[keep]
-            labels = labels.cpu().numpy().astype(np.int64)
-            if label_map is not None:
-                labels = label_map[labels]
-            results.append(dict(boxes_3d=boxes.cpu().numpy(), scores_3d=scores.cpu().numpy(), labels_3d=labels))
-        return results
+                if len(boxes):  # the IoU matrix where the predictions are; the greedy walk on the host
+                    with stage("nms"):
+                        keep = nms_bev(boxes[:, [0, 1, 3, 4, 6]], scores, nms_thresh)
+                    boxes, scores, labels = boxes[keep], scores[keep], labels[keep]
+                labels = labels.cpu().numpy().astype(np.int64)
+                if label_map is not None:
+                    labels = label_map[labels]
+                results.append(dict(boxes_3d=boxes.cpu().numpy(), scores_3d=scores.cpu().numpy(), labels_3d=labels))
+            return results

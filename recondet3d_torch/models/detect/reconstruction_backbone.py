@@ -84,8 +84,9 @@ class ReconstructionBackbone(nn.Module):
     def predict_depth(self, img):
         """DA3 multi-view depth + intrinsics from raw images: (depth
         (B, N, h, w) fp32, intrinsics (B, N, 3, 3) fp32, the DA3 outputs)."""
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_da3):
-            x, _ = process_tensor_batch(img, process_res=self.process_res)
+        with stage("da3"), torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_da3):
+            with stage("da3_input"):
+                x, _ = process_tensor_batch(img, process_res=self.process_res)
             da3_out = self.da3(x, use_ray_pose=self.use_ray_pose, ref_view_strategy=self.ref_view_strategy)
         return da3_out["depth"].float(), da3_out["intrinsics"].float(), da3_out
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from recondet3d_torch.models.detect.reconstruction_backbone import ReconstructionBackbone
+from recondet3d_torch.utils.stage_timer import stage
 
 __all__ = ["ResDet3D"]
 
@@ -64,10 +65,12 @@ class ResDet3D(nn.Module):
         {"pseudo_points" (B, P, C), "pseudo_valid" (B, P), "aux"}; ``aux``
         holds ``occupancy_logits`` (B, Y, X, C) when a refinement is set;
         with a detection head ``det_preds`` holds its raw predictions."""
-        pts, msk, _, aux = self.reconstruction_backbone(img, cam2lidar_rts, depth_override=depth_override)
-        out = {"pseudo_points": pts, "pseudo_valid": msk, "aux": aux}
-        if self.pts_bbox_head is not None:
-            out["det_preds"] = self.pts_bbox_head(aux["bev_features"])
+        with stage("request", unit=True):
+            pts, msk, _, aux = self.reconstruction_backbone(img, cam2lidar_rts, depth_override=depth_override)
+            out = {"pseudo_points": pts, "pseudo_valid": msk, "aux": aux}
+            if self.pts_bbox_head is not None:
+                with stage("det_head"):
+                    out["det_preds"] = self.pts_bbox_head(aux["bev_features"])
         return out
 
     @torch.no_grad()
@@ -77,12 +80,14 @@ class ResDet3D(nn.Module):
         images, which colour its points). Returns ((depth_t, intr_t),
         out_{t-1}); prime the carry with ``predict_depth`` on scene 0."""
         bk = self.reconstruction_backbone
-        depth, intr, _ = bk.predict_depth(img)
-        pts, msk = bk.points_from_depth(prev_depth, prev_intr, prev_img, cam2lidar_rts)
-        aux: Dict[str, Any] = {}
-        if bk.refinement is not None:
-            pts, _, aux = bk.refinement(pts, msk)
-        out = {"pseudo_points": pts, "pseudo_valid": msk, "aux": aux}
-        if self.pts_bbox_head is not None:
-            out["det_preds"] = self.pts_bbox_head(aux["bev_features"])
+        with stage("request", unit=True):
+            depth, intr, _ = bk.predict_depth(img)
+            pts, msk = bk.points_from_depth(prev_depth, prev_intr, prev_img, cam2lidar_rts)
+            aux: Dict[str, Any] = {}
+            if bk.refinement is not None:
+                pts, _, aux = bk.refinement(pts, msk)
+            out = {"pseudo_points": pts, "pseudo_valid": msk, "aux": aux}
+            if self.pts_bbox_head is not None:
+                with stage("det_head"):
+                    out["det_preds"] = self.pts_bbox_head(aux["bev_features"])
         return (depth, intr), out

@@ -152,7 +152,7 @@ def fixed_state_steps(steps):
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         row = dict(step=i, warm_up=i == 0, wall_ms=wall, device_span_ms=start.elapsed_time(end),
-                   stage_ms={k: v for k, v in stages.items() if not k.endswith("/calls")},
+                   stage_ms={k: v for k, v in stages.items() if "/" not in k},
                    valid_counts={k: [int(c) for c in v]
                                  for k, v in model.reconstruction_backbone.last_stage_counts.items()},
                    loss=history[-1]["loss"])

@@ -196,13 +196,17 @@ class Trainer:
         for i, batch in enumerate(data_iter):
             if i >= n:
                 break
-            if not sharded:
-                batch = shard_batch(self.mesh, batch)
-            batch = {k: v.to(device, non_blocking=True) if torch.is_tensor(v) else v for k, v in batch.items()}
-            with local_mesh_context(self.mesh):
-                state, metrics = self._step_fn(state, batch)
-            if (i + 1) % self.log_interval == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+            with stage("train_step", unit=True):
+                if not sharded:
+                    batch = shard_batch(self.mesh, batch)
+                batch = {k: v.to(device, non_blocking=True) if torch.is_tensor(v) else v for k, v in batch.items()}
+                with local_mesh_context(self.mesh):
+                    state, metrics = self._step_fn(state, batch)
+                logged = (i + 1) % self.log_interval == 0
+                if logged:
+                    with stage("metrics_readback"):  # waits for the step's device work
+                        m = {k: float(v) for k, v in metrics.items()}
+            if logged:
                 m["steps_per_sec"] = (i + 1) / (time.time() - t0)
                 history.append(m)
                 if writer is not None:
