@@ -55,10 +55,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 7. fps      the furthest-point-sampling kernel vs its plain PyTorch
             version at the sizes the point path gives it, on the buffers
             that path produces for a rendered street scene; the index
-            sequences must be identical. Times of the kernel, the plain
-            version, the bound (bytes or fp32 operations), and the exchange
-            floor: this design's exchange alone (one cluster, or two levels
-            for the clusters a case uses) times K - 1.
+            sequences must be identical. Times of the kernel (and µs a
+            selection), the plain version, the bound (bytes or fp32
+            operations), the launch's exchanges (selections per exchange)
+            and the exchange floor: this design's exchange alone (one
+            cluster's candidate list, or one record a CTA and the second
+            level for the clusters a case uses) times the exchanges.
 7b. fps-large the same at the sizes past the main path: the street scene's
             846,720 rows without pre-reduce (5 clusters), 6 x 364 x 644 =
             1,406,496 rows all valid (past what 7 clusters hold on chip: the
@@ -275,8 +277,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 15. the kernel table as one JSON line; then the card line, then the result.
 
 ``--parent DIR`` (a ``git archive`` of an earlier tree, e.g. in the git-ignored
-``scratch_tree/``) adds one phase after phase 7: the FPS kernel on this run's
-FPS cases, the dq and dk/dv kernels at the fine-tuning shapes, the flash
+``scratch_tree/``) adds one phase after phase 7b: the FPS kernel on this run's
+FPS cases of phases 7 and 7b (µs a selection of each tree beside this tree's
+selections per exchange and exchange floor), the dq and dk/dv kernels at the fine-tuning shapes, the flash
 forward at the request's shapes, bf16 attention at D in {32, 96, 128, 20}
 and {160, 256} (forward, dq and dk/dv on the kernels each tree routes them
 to), the fp32
@@ -790,7 +793,9 @@ def fps_bound_ms(n_rows, n_valid, k):
 def fps_case(name, pts, valid, k, presorted, exchange_us, on_main_path, iters=3):
     """Kernel vs plain version on one buffer: the index sequences must be
     identical (FPS is chaotic: one different pick changes all later ones).
-    ``exchange_us``: {clusters: µs of one step of this design's exchange}."""
+    ``exchange_us``: {clusters: µs of one exchange of this design}; the
+    exchange floor is the launch's own exchanges (``last_ctrl`` entry 4)
+    times that, and ``selections_per_exchange`` its K - 1 over them."""
     n = pts.shape[0]
     n_valid = int(valid.sum())
     got = furthest_point_sample(pts, k, valid, presorted=presorted)
@@ -808,17 +813,20 @@ def fps_case(name, pts, valid, k, presorted, exchange_us, on_main_path, iters=3)
     ok = mismatches == 0 and in_range and picks_valid and ctrl[2] == fps_ops.CLUSTER
     k_ms = time_ms(lambda: furthest_point_sample(pts, k, valid, presorted=presorted), iters, warmup=1)
     b_ms, b_by = fps_bound_ms(n, n_valid, k)
-    clusters = ctrl[3]
+    clusters, exchanges = ctrl[3], ctrl[4]
+    ok = ok and (1 <= exchanges <= k - 1 if k > 1 else exchanges == 0)
     res = dict(name=name, N=n, n_valid=n_valid, K=k, presorted=presorted is not None, on_main_path=on_main_path,
                plan=fps_ops.furthest_point_sample_cuda.last_plan._asdict(), cluster_size=ctrl[2],
                clusters_used=clusters, mismatches=mismatches, first_mismatch=first_bad, max_abs_err=float(mismatches),
                tol=0, ms=k_ms, us_per_selection=1e3 * k_ms / k, plain_ms=p_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=b_by, exchange_us=exchange_us[clusters],
-               exchange_floor_ms=1e-3 * exchange_us[clusters] * (k - 1), ok=ok)
+               bound_ms=b_ms, bound_by=b_by, exchanges=exchanges,
+               selections_per_exchange=(k - 1) / exchanges if exchanges else None, exchange_us=exchange_us[clusters],
+               exchange_floor_ms=1e-3 * exchange_us[clusters] * exchanges, ok=ok)
     emit("fps_kernel", **res)
     if not ok:
         fail(f"fps kernel disagrees with the plain version at {name}: {mismatches} of {k} indices differ "
-             f"(first at {first_bad}); in range {in_range}; picks valid {picks_valid}; cluster size {ctrl[2]}")
+             f"(first at {first_bad}); in range {in_range}; picks valid {picks_valid}; cluster size {ctrl[2]}; "
+             f"exchanges {exchanges}")
     res["kernel_args"] = kernel_args
     return res
 
@@ -1555,7 +1563,9 @@ def parent_comparison(parent, fps_cases):
     indices, and ptxas must give the D = 64 instances of this tree's
     forward, dq and dk/dv (``<1,0>``) the registers of the parent's kernels
     (or of a parent's kernel that is no template). Emits the change's
-    D = 64 request and step mixes over the parent's."""
+    D = 64 request and step mixes over the parent's, and for each FPS case
+    each tree's µs a selection (its mean over the tree's two processes)
+    beside this tree's selections per exchange and exchange floor."""
     here = os.path.dirname(os.path.abspath(__file__))
     tool = os.path.join(here, "recondet3d_torch", "tools", "kernel_times.py")
     runs = []
@@ -1599,7 +1609,16 @@ def parent_comparison(parent, fps_cases):
             for name, ms in stages.items():
                 stage_ms[r["tree"]][name].append(ms)
     stage_medians = {tree: {name: float(np.median(v)) for name, v in d.items()} for tree, d in stage_ms.items()}
-    emit("parent_comparison", parent=os.path.abspath(parent), runs=runs, registers=registers,
+    fps_by_case = {}
+    for c in fps_cases:
+        us = {tree: float(np.mean([1e3 * r["fps_ms"][c["name"]] / c["K"] for r in runs if r["tree"] == tree]))
+              for tree in ("parent", "change")}
+        fps_by_case[c["name"]] = dict(N=c["N"], n_valid=c["n_valid"], K=c["K"], clusters_used=c["clusters_used"],
+                                      parent_us_per_selection=us["parent"], change_us_per_selection=us["change"],
+                                      change_over_parent=us["change"] / us["parent"], exchanges=c["exchanges"],
+                                      selections_per_exchange=c["selections_per_exchange"],
+                                      exchange_floor_ms=c["exchange_floor_ms"])
+    emit("parent_comparison", parent=os.path.abspath(parent), runs=runs, registers=registers, fps=fps_by_case,
          d64_same_registers=same_registers, fwd_request_mix_change_over_parent=ratio("fwd_request_mix_ms"),
          dq_step_mix_change_over_parent=ratio("dq_step_mix_ms"),
          dkv_step_mix_change_over_parent=ratio("dkv_step_mix_ms"), requests=request_stats,
@@ -4754,11 +4773,11 @@ def main(argv=None):
                    for c in (1, 2, 3, 5, 7)}
     emit("fps_exchange", rounds=ANCHORS - 1, us_per_round_by_clusters=exchange_us)
     fps_cases = fps_phase(backbone, c2l, depth, exchange_us)
-    if args.parent:
-        parent_comparison(args.parent, fps_cases)
     fps_case_of = {(c["N"], c["K"]): c for c in fps_cases if c["on_main_path"]}
     # 7b. FPS past the main path's sizes: no pre-reduce, the overflow past 7 clusters, the most rows it takes
     fps_large = fps_large_phase(backbone, c2l, depth, exchange_us)
+    if args.parent:
+        parent_comparison(args.parent, fps_cases + fps_large)
     # the detection config sets no pre-reduce: its anchors and final FPS run at these two sizes
     det_fps_case_of = {(c["N"], c["K"]): c for c in fps_cases + fps_large
                        if (c["N"], c["K"]) in ((NO_PRE_REDUCE_ROWS, ANCHORS), (UNION_CAP_NO_PRE_REDUCE, NUM_POINTS))}
