@@ -5,10 +5,13 @@
 
 For each seed it makes one run of the cell as ``run.py`` does, with a short
 window (``--seconds``), and prints its numbers: the program's (the lower
-readings), the control's, the reference computed one precision below the
-configuration's in the program's place (the upper readings), and each
-planted fault's (``benchmark/harness/faults.py``). One JSON line a run, also
-appended to ``--out``. The benchmark's own runs never run this.
+readings), each planted fault's (the family's ``FAULTS``, e.g.
+``benchmark/families/resdet3d.py``), and the control's, the reference
+computed one precision below the configuration's in the program's place
+(the upper readings; in one process over the global batch, also for a cell
+of several ranks, whose program and fault runs share one group of ranks).
+One JSON line a run, also appended to ``--out``. The benchmark's own runs
+never run this.
 """
 
 import os
@@ -23,12 +26,25 @@ import time  # noqa: E402
 
 import torch  # noqa: E402
 
-from benchmark.harness.faults import FAULTS  # noqa: E402
-from benchmark.harness.main import run_cell  # noqa: E402
+from benchmark.harness.main import BENCH, cell_files, run_cell  # noqa: E402
+from benchmark.harness.ranks import Ranks  # noqa: E402
+
+# a plan of many runs: every rank's process holds its card this long at the most
+DEADLINE_S = 3300.0
 
 
 def _seeds(text):
     return [int(s) for s in text.split(",") if s]
+
+
+def _report(args, what, seed, res, t0):
+    line = {"cell": args.workload, "run": what, "seed": seed, "correct": res["correct"],
+            "readings": res["readings"], "reference_s": res["reference_s"], "units": res["attempted"],
+            "metrics": res["metrics"], "seconds": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(json.dumps(line) + "\n")
 
 
 def main(argv=None) -> int:
@@ -42,19 +58,19 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     plan = [("program", s, None) for s in _seeds(args.seeds)]
-    plan += [("control", s, None) for s in _seeds(args.control_seeds)]
     plan += [(f, s, f) for f in args.faults.split(",") if f for s in _seeds(args.fault_seeds)]
-    for what, seed, fault in plan:
+    runs = [dict(cell=args.workload, seed=s, seconds=args.seconds, trace=False, fault=f) for _, s, f in plan]
+    n = int(cell_files(args.workload)["traffic"].get("ranks", 1))
+    with Ranks(n if runs else 1, runs, "cuda", BENCH, DEADLINE_S) as group:
+        for (what, seed, _), run in zip(plan, runs):
+            t0 = time.perf_counter()
+            res = run_cell(**run, place=group.place())
+            _report(args, what, seed, res, t0)
+            torch.cuda.empty_cache()
+    for seed in _seeds(args.control_seeds):  # one process, over the global batch
         t0 = time.perf_counter()
-        res = run_cell(args.workload, seed, args.seconds, False, control=what == "control",
-                       fault=FAULTS[fault] if fault else None)
-        line = {"cell": args.workload, "run": what, "seed": seed, "correct": res["correct"],
-                "readings": res["readings"], "reference_s": res["reference_s"], "units": res["attempted"],
-                "metrics": res["metrics"], "seconds": time.perf_counter() - t0}
-        print(json.dumps(line), flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(json.dumps(line) + "\n")
+        res = run_cell(args.workload, seed, args.seconds, False, control=True)
+        _report(args, "control", seed, res, t0)
         torch.cuda.empty_cache()
     return 0
 

@@ -14,7 +14,7 @@ Images are uniform noise in 0..255, as ``bench.py``'s are.
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,23 +76,27 @@ def anchor_depth(points: np.ndarray, c2l: np.ndarray, ph: int, pw: int, seed: in
     return depth
 
 
-def make_pool(traffic: Dict, cfg: Dict, seed: int, device) -> List[Dict[str, torch.Tensor]]:
-    """``traffic['pool']`` distinct requests (or training batches), each a
-    dict of device tensors: ``img`` (B, V, H, W, 3) in 0..255,
-    ``cam2lidar_rts`` (B, V, 4, 4), ``depth`` (B, V, ph, pw) anchored, and for
-    training ``gt_points`` (B, P, 3) spread over the range."""
+def make_pool(traffic: Dict, cfg: Dict, seed: int, device, rank: int = 0,
+              count: Optional[int] = None) -> List[Dict[str, torch.Tensor]]:
+    """``traffic['pool']`` (or the first ``count``) distinct requests or
+    training batches of rank ``rank``, each a dict of device tensors: ``img``
+    (B, V, H, W, 3) in 0..255, ``cam2lidar_rts`` (B, V, 4, 4), ``depth`` (B, V,
+    ph, pw) anchored, and for training ``gt_points`` (B, P, 3) spread over the
+    range. Rank 0 draws what a run of one process draws; every other rank
+    draws from seeds of its own."""
     B, V = int(traffic["batch"]), int(traffic["views"])
     H, W = traffic["image_hw"]
     rb = cfg["model"]["reconstruction_backbone"]
     cloud = np.load(REFERENCE_POINTS)["points"]
     c2l = rig_cam2lidar(B, V)
+    own = (rank,) if rank else ()
     pool = []
-    for i in range(int(traffic["pool"])):
-        gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 1, i))
+    for i in range(int(traffic["pool"]) if count is None else count):
+        gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 1, i, *own))
         item = {"img": torch.rand((B, V, H, W, 3), generator=gen, device=device) * 255.0,
                 "cam2lidar_rts": torch.from_numpy(np.ascontiguousarray(c2l)).to(device)}
         ph, pw = compute_process_shape(H, W, int(rb["process_res"]))[2:]
-        depth = np.stack([anchor_depth(cloud, c2l[b], ph, pw, sub_seed(seed, 2, i, b)) for b in range(B)])
+        depth = np.stack([anchor_depth(cloud, c2l[b], ph, pw, sub_seed(seed, 2, i, b, *own)) for b in range(B)])
         item["depth"] = torch.from_numpy(depth).to(device)
         if traffic["kind"] == "train":
             lo, hi = rb["refinement"]["point_cloud_range"][:3], rb["refinement"]["point_cloud_range"][3:]

@@ -20,6 +20,8 @@ __all__ = ["kernel_class", "profile_stretch"]
 
 def kernel_class(name: str) -> str:
     n = name.lower()
+    if "nccl" in n:
+        return "NCCL collectives"
     if "flash_fwd_kernel" in n:
         return "flash_attn_fwd (hand kernel)"
     if "flash_bwd_dq_kernel" in n:
@@ -62,12 +64,21 @@ def _union_us(intervals: List[Tuple[float, float]]) -> Tuple[float, List[Tuple[f
     return total, gaps
 
 
+def busy_intervals(kernels: List[Tuple[str, float, float]]) -> List[Tuple[float, float]]:
+    """The intervals of ``kernels`` (name, start, end) that count as work:
+    every kernel but NCCL's collectives, which spin while they wait for the
+    other ranks (their time is in the class ``NCCL collectives``)."""
+    return [(s, e) for name, s, e in kernels if kernel_class(name) != "NCCL collectives"]
+
+
 def profile_stretch(fn: Callable[[int], None], units: int, top_n: int = 10) -> Dict:
     """Run ``fn(i)`` for ``units`` requests or steps under ``torch.profiler``
-    and reduce the trace: ``busy_s`` (kernel intervals merged), ``window_s``
-    (host wall time of the stretch, ending in a synchronise), device seconds
-    by kernel name and by class, and the idle gaps by the innermost host
-    operation running at each gap's middle."""
+    and reduce the trace: ``busy_s`` (``busy_intervals`` merged),
+    ``window_s`` (host wall time of the stretch, ending in a synchronise),
+    device seconds by kernel name and by class, and the idle gaps by the
+    innermost host operation running at each gap's middle. Device-side
+    ranges of user annotations (the program's spans) are not kernels and
+    are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -77,11 +88,14 @@ def profile_stretch(fn: Callable[[int], None], units: int, top_n: int = 10) -> D
             fn(i)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
-    kernels, host = [], []
+    kernels, host, annotations = [], [], 0
     for e in prof.events():
         tr = e.time_range
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((e.name, tr.start, tr.end))
+            if getattr(e, "is_user_annotation", False):  # a span's range mirrored on the device: no kernel
+                annotations += 1
+            else:
+                kernels.append((e.name, tr.start, tr.end))
         elif tr.end > tr.start:
             host.append((e.name, tr.start, tr.end))
     by_name = defaultdict(float)
@@ -90,7 +104,7 @@ def profile_stretch(fn: Callable[[int], None], units: int, top_n: int = 10) -> D
     by_class = defaultdict(float)
     for name, sec in by_name.items():
         by_class[kernel_class(name)] += sec
-    busy_us, gaps = _union_us([(s, e) for _, s, e in kernels])
+    busy_us, gaps = _union_us(busy_intervals(kernels))
     gap_by_host = defaultdict(float)
     host.sort(key=lambda h: h[1])
     running, j = [], 0  # heap of (duration, end, name) of the host operations begun by the gap's middle
@@ -105,5 +119,6 @@ def profile_stretch(fn: Callable[[int], None], units: int, top_n: int = 10) -> D
         gap_by_host[running[0][2] if running else "(no host operation)"] += (ge - gs) / 1e6
     order = lambda d: sorted(d.items(), key=lambda kv: -kv[1])  # noqa: E731
     return {"busy_s": busy_us / 1e6, "window_s": window_s, "units": units, "kernels_by_name": dict(by_name),
+            "annotations_left_out": annotations,
             "device_ops": [[k, v] for k, v in order(by_class)[:top_n]],
             "idle_gaps": [[k, v] for k, v in order(gap_by_host)[:top_n]]}

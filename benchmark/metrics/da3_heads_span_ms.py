@@ -1,6 +1,5 @@
 """Device ms a request in DA3's heads by the program's span ``da3_heads``
-(the head, the camera estimation and the sky clamp of each branch), the
-program's own reading of ``da3_heads_ms``."""
+(the head, the camera estimation and the sky clamp of each branch)."""
 
 LAYER = "DA3 heads"
 MOVES = "frames_per_s"

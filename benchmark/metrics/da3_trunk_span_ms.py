@@ -1,6 +1,5 @@
 """Device ms a request in DA3's ViT trunks by the program's span
-``da3_trunk`` (any-view and metric), the program's own reading of
-``da3_trunk_ms``."""
+``da3_trunk`` (any-view and metric)."""
 
 LAYER = "DA3 trunks"
 MOVES = "frames_per_s"

@@ -1,6 +1,5 @@
 """Host ms a request in ``pts_bbox_head.decode`` by the program's span
-``decode`` (top-K, BEV NMS, results to the host), the program's own reading
-of ``decode_ms``."""
+``decode`` (top-K, BEV NMS, results to the host)."""
 
 LAYER = "detection head"
 MOVES = "latency_p90_ms"

@@ -1,5 +1,4 @@
-"""Device ms a request in the CenterHead by the program's span ``det_head``,
-the program's own reading of ``det_head_ms``."""
+"""Device ms a request in the CenterHead by the program's span ``det_head``."""
 
 LAYER = "detection head"
 MOVES = "frames_per_s"

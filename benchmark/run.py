@@ -6,8 +6,11 @@ From the root of a checkout. The cell's files are found by name under
 ``benchmark/``; the last line of standard output is the result (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1`` also
 ``breakdown``, and ``checks`` last), the numbers compared and their limits are
-the last lines of standard error. Exits 2 without a result where the cell's
-CUDA devices are missing, 3 where JAX or the JAX package was loaded.
+the last lines of standard error. A cell whose traffic has ``ranks: N``
+runs as N processes, one card each, that this one starts and is rank 0 of
+(``benchmark/harness/ranks.py``). Exits 2 without a result where the cell's
+CUDA devices are missing, 3 where JAX or the JAX package was loaded, 1 where
+a rank failed.
 """
 
 import time

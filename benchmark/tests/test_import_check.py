@@ -58,3 +58,17 @@ def test_a_folder_without_the_program_gives_no_result(tmp_path):
             "print(run_cell('occ-infer-b2', 1, 0.1, False, device='cpu'))" % str(tmp_path))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert out.returncode != 0 and "recondet3d_torch" in out.stderr and '"correct"' not in out.stdout
+
+
+def test_a_rank_that_loaded_a_banned_module_exits_3():
+    """Every rank's process checks itself, not rank 0's alone (a plan of no runs here)."""
+    code = ("import os, sys; sys.path.insert(0, %r)\n"
+            "if sys.argv[1] == 'jax':\n"
+            "    import jax\n"
+            "from benchmark.harness.ranks import child_main\n"
+            "sys.exit(child_main({'rank': 1, 'ranks': 2, 'init_method': None, 'device': 'cpu', 'bench': %r, "
+            "'plan': [], 'parent': os.getppid()}))" % (str(BENCH.parent), str(BENCH)))
+    clean = subprocess.run([sys.executable, "-c", code, "none"], capture_output=True, text=True, timeout=300)
+    assert clean.returncode == 0, clean.stderr[-2000:]
+    loaded = subprocess.run([sys.executable, "-c", code, "jax"], capture_output=True, text=True, timeout=300)
+    assert loaded.returncode == 3 and "['jax'" in loaded.stderr, loaded.stderr[-2000:]

@@ -5,7 +5,7 @@ import json
 import torch
 
 from benchmark.harness.inputs import make_pool, rig_cam2lidar
-from benchmark.harness.main import build_program, build_reference
+from benchmark.families.resdet3d import build_program, build_reference
 from benchmark.tests.tiny import TINY_TRAFFIC, make_tiny
 
 SEED = 2 ** 31 + 5

@@ -6,11 +6,12 @@ import pytest
 from benchmark.counts import PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES
 from benchmark.counts import attention, fps
 from benchmark.harness.main import load_reader
+from benchmark.harness.trace import busy_intervals, kernel_class
 
 
 def _run(**kw):
     run = {"kind": "infer", "units": 10, "window_s": 5.0, "setup_s": 12.5, "latencies_s": [0.5] * 10,
-           "frames_per_unit": 12, "samples_per_unit": 1, "spans_ms": {}, "hooks_ms": {}, "decode_s": []}
+           "frames_per_unit": 12, "samples_per_unit": 1, "chips": 1, "spans_ms": {}}
     run.update(kw)
     return run
 
@@ -78,14 +79,36 @@ def test_rooflines_idle_and_mfu_from_a_profile():
 def test_spans_and_hooks_per_request():
     run = _run(units=4, spans_ms={"unprojection": 4.0, "pre_reduce": 8.0, "ball_query_downsample": 20.0,
                                   "fps_downsample": 8.0, "voxelize_vfe": 2.0, "sparse_encoder": 6.0,
-                                  "bev_unet": 8.0},
-               hooks_ms={"da3_trunk_ms": 400.0, "da3_heads_ms": 200.0, "det_head_ms": 40.0},
-               decode_s=[0.02, 0.04])
+                                  "bev_unet": 8.0})
     assert load_reader("point_path_ms").read(run) == pytest.approx(10.0)
     assert load_reader("refinement_ms").read(run) == pytest.approx(4.0)
-    assert load_reader("da3_trunk_ms").read(run) == pytest.approx(100.0)
-    assert load_reader("det_head_ms").read(run) == pytest.approx(10.0)
-    assert load_reader("decode_ms").read(run) == pytest.approx(30.0)
     train = _run(kind="train", units=2, spans_ms={"forward": 300.0, "backward": 100.0, "optimizer": 20.0})
     assert [load_reader(n).read(train) for n in ("train_forward_ms", "train_backward_ms", "optimizer_ms")] == \
         pytest.approx([150.0, 50.0, 10.0])
+
+
+def test_fps_selections_per_exchange_from_the_counters():
+    reader = load_reader("fps_selections_per_exchange")
+    assert reader.read(_run(fps_exchange={"selections": 6000, "exchanges": 100})) == pytest.approx(60.0)
+    assert reader.read(_run(fps_exchange={"selections": 0, "exchanges": 0})) is None  # no FPS ran: nothing to read
+    assert reader.read(_run()) is None
+    assert reader.read(_run(kind="train", fps_exchange={"selections": 6000, "exchanges": 100})) is None
+
+
+def test_busy_time_leaves_the_collectives_out():
+    # NCCL 0-10 us under a GEMM 0-6 us, NCCL 20-30 us alone, a GEMM 40-50 us: 16 us of work
+    kernels = [("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 0.0, 10.0), ("sm90_gemm", 0.0, 6.0),
+               ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 20.0, 30.0), ("sm90_gemm", 40.0, 50.0)]
+    assert kernel_class(kernels[0][0]) == "NCCL collectives"
+    assert busy_intervals(kernels) == [(0.0, 6.0), (40.0, 50.0)]
+    # idle over two traced steps of 16 us busy, against 0.5 s a step in the window
+    prof = {"units": 2, "window_s": 1.0, "busy_s": 16e-6, "kernels_by_name": {}}
+    train = _run(kind="train", units=10, window_s=5.0, chips=4, profile=prof)
+    assert load_reader("idle_share.train").read(train) == pytest.approx(1 - (16e-6 / 2) / 0.5)
+
+
+def test_mfu_of_several_cards_is_over_their_peak():
+    prof = {"units": 2, "window_s": 1.6, "busy_s": 0.8, "kernels_by_name": {}}
+    one = _run(kind="train", units=16, window_s=4.0, profile=prof, flops_per_unit=4e12)
+    four = dict(one, chips=4)
+    assert load_reader("mfu_pct.train").read(four) == pytest.approx(load_reader("mfu_pct.train").read(one) / 4)

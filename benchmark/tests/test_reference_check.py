@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from benchmark.harness.faults import FAULTS, faults_for
+from benchmark.families.resdet3d import faults_for
 from benchmark.harness.main import run_cell
 from benchmark.tests.tiny import TINY_CELLS, TINY_TRAFFIC, make_tiny
 
@@ -40,13 +40,10 @@ def test_the_control_fails(tmp_path_factory, cell):
     assert not res["correct"], res["checks"]
 
 
-CASES = [(cell, f) for cell in sorted(TINY_CELLS) for f in
-         faults_for(TINY_TRAFFIC[TINY_CELLS[cell][1]]["kind"], TINY_TRAFFIC[TINY_CELLS[cell][1]]["batch"],
-                    bool(TINY_TRAFFIC[TINY_CELLS[cell][1]].get("decode")))]
+CASES = [(cell, f) for cell in sorted(TINY_CELLS) for f in faults_for(TINY_TRAFFIC[TINY_CELLS[cell][1]])]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_each_fault_fails(tmp_path_factory, cell, fault):
-    res = run_cell(cell, SEED, 0.2, False, device="cpu", bench=_bench(tmp_path_factory, cell),
-                   fault=FAULTS[fault])
+    res = run_cell(cell, SEED, 0.2, False, device="cpu", bench=_bench(tmp_path_factory, cell), fault=fault)
     assert not res["correct"], (fault, res["checks"])

@@ -39,8 +39,11 @@ TINY_TRAFFIC = {
     "tiny-train": {"kind": "train", "batch": 1, "views": 2, "image_hw": [56, 84], "gt_points": 512, "pool": 3,
                    "checked_steps": 3, "schedule_steps": 100, "profile_units": 2},
 }
+TINY_TRAFFIC["tiny-train-dp2"] = dict(TINY_TRAFFIC["tiny-train"], ranks=2)
 TINY_CELLS = {"tiny-occ-infer": ("tiny-occ", "tiny-infer"), "tiny-det-infer": ("tiny-det", "tiny-detect"),
               "tiny-occ-train": ("tiny-occ", "tiny-train")}
+# cells of several ranks (one process a rank, gloo on the CPU)
+TINY_RANKED = {"tiny-occ-train-dp2": ("tiny-occ", "tiny-train-dp2")}
 
 
 def make_tiny(dst: Path, limits=None) -> Path:
@@ -58,7 +61,7 @@ def make_tiny(dst: Path, limits=None) -> Path:
     for name, traffic in TINY_TRAFFIC.items():
         (bench / "traffic" / f"{name}.json").write_text(json.dumps(traffic))
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
-    for cell, (config, traffic) in TINY_CELLS.items():
+    for cell, (config, traffic) in {**TINY_CELLS, **TINY_RANKED}.items():
         work = {"config": config, "traffic": traffic, "chips": 1, "why": "CPU test", "limits": limits or {}}
         (bench / "workloads" / f"{cell}.json").write_text(json.dumps(work))
         manifest["workloads"].append({"name": cell, "config": config, "traffic": traffic, "chips": 1,
